@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the interactive BraTS frame of ``bench.py`` through the port
-(``mri_raytracer_tpu_torch``): a 256^3 four-modality synthetic volume
-(seed 0) with the GT-seg overlay, rendered at 1024^2 by
+Drives two paths of the port (``mri_raytracer_tpu_torch``) on a 256^3
+four-modality synthetic volume (seed 0) with the GT-seg overlay at 1024^2:
+the interactive BraTS frame of ``bench.py``, rendered by
 ``BratsRenderer(backend="auto")``, which must resolve to ``sweep_cuda``
-(stage 1 in PyTorch, then the CUDA kernels K1 and K2). Phases:
+(stage 1 in PyTorch, then the CUDA kernels K1 and K2); and the live-INR
+neural march (mode 2), rendered by ``NeuralBratsRenderer(backend="auto")``
+with the default INR (``ModelConfig()``, weights from a seed), which must
+resolve to ``fused`` (the INR's strided prediction field, stage 1, K1 with
+the field overlay K1b, K2). Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -19,13 +23,22 @@ Drives the interactive BraTS frame of ``bench.py`` through the port
               clock around torch.cuda.synchronize()
   5. quality  PSNR against the port's oracle at the six poses of bench.py,
               each >= 40 dB
-  6. timing   device times (torch.profiler) and CUDA-event times of K1,
+  6. timing   device times (torch.profiler, from a cold L2) and
+              back-to-back CUDA-event times of K1,
               K2, stage 1, the plain versions and the library yardstick,
               beside each kernel's bound
   7. profile  torch.profiler over PROFILE_FRAMES orbit frames: device
               kernels per frame, device busy time per frame by kernel,
               and the device's idle share of the unprofiled frame time
-  8. report   the kernels JSON line, the card's name and power limit, and
+  8. neural   mode 2: K1b held against its plain version at the start
+              pose; a warm-up, then BATCHES x ITERS orbit frames whose K1,
+              K1b and K2 launch counts must equal the number of frames;
+              the fused frame against the plain scan on the same geometry
+              and field at the six poses, each >= 40 dB; device and
+              CUDA-event times of predict_field, stage 1, K1b, K2 and
+              bake_labels, K1b's bound; a profile of the neural frame;
+              and a few 'rebake' frames (K1 with baked-pred rows)
+  9. report   the kernels JSON line, the card's name and power limit, and
               the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
@@ -45,6 +58,10 @@ WIDTH = HEIGHT = 1024
 VOL = (256, 256, 256)
 WARMUP, ITERS, BATCHES = 15, 15, 3
 PROFILE_FRAMES = 5
+NEURAL_WARMUP = 5
+# Added to the random INR's last bias so that several classes appear
+# (tests/test_neural_march.py:176).
+BIAS_NUDGE = (0.0, 0.4, 0.5, 0.45)
 # Kernel vs plain version, max abs error on C, T and the frame: both sides
 # read the same bf16 stage-1 rows and do the same fp32 operations in the
 # same order; 1e-3 leaves room for the compiler's fused multiply-adds and
@@ -60,6 +77,11 @@ POSES = [("orbit", 0.6, 1.2), ("face-x", 0.0, np.pi / 2),
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+# Overwritten before each timed call, so that no input is still in the
+# card's 50 MB L2 from the call before; its kernel's name holds FLUSH_OP,
+# which no timed function uses.
+L2_FLUSH_BYTES = 256 << 20
+FLUSH_OP = "bitwise_not"
 # fp32 operations counted in csrc/composite.cu per (pixel, plane) pair that
 # composites (gate, entry correction, 2-tap lerp, transfer, alpha with its
 # expf, colour and T update); per such pair when an overlay is on, the
@@ -94,9 +116,11 @@ def cuda_ms(torch, fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_activity(torch, fn, n: int):
+def device_activity(torch, fn, n: int, flush=None):
     """{name: (count, us)} of the device activities torch.profiler records
-    over ``n`` calls of ``fn`` (after one untimed call)."""
+    over ``n`` calls of ``fn`` (after one untimed call). ``flush``, when
+    given, runs before each call; activities whose name holds
+    ``FLUSH_OP`` are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,24 +129,41 @@ def device_activity(torch, fn, n: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not (
+                flush is not None and FLUSH_OP in e.name):
             k, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
     return by_name
 
 
 def device_ms(torch, fn, n: int) -> float:
-    """Mean device time of one ``fn`` call: the summed durations of its
-    device activities over ``n`` calls, over ``n``. The host's issue time
-    between launches is not in it."""
-    us = sum(t for _, t in device_activity(torch, fn, n).values())
-    if us <= 0.0:
+    """Mean device time of one ``fn`` call from a cold L2: a buffer larger
+    than the L2 is overwritten before each call (its kernel is not
+    counted), so inputs are read from device memory as the bound assumes.
+    Per activity name, the mean duration times its count per call: every
+    call issues the same activities, and the profiler may lose a record of
+    a long run (a count one short of a multiple of ``n``); a loss is
+    logged. The host's issue time between launches is not in it."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    by_name = device_activity(torch, fn, n, flush=buf.bitwise_not_)
+    if not by_name:
         raise RuntimeError("torch.profiler saw no device activity")
-    return us / 1e3 / n
+    ms, lost = 0.0, 0
+    for k, us in by_name.values():
+        per_call = max(1, round(k / n))
+        lost += abs(per_call * n - k)
+        ms += us / k * per_call / 1e3
+    if lost:
+        log("timing", f"torch.profiler's device records are {lost} off a "
+            f"whole count per call over {n} calls; the mean of the others "
+            "stands for them")
+    return ms
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -169,8 +210,8 @@ def run(torch) -> int:
 
     # ----------------------------------------------------------- scene
     t0 = time.perf_counter()
-    mods, seg = synthetic_case(VOL, seed=0)
-    mods = np.stack([percentile_normalize(m) for m in mods])
+    raw, seg = synthetic_case(VOL, seed=0)
+    mods = np.stack([percentile_normalize(m) for m in raw])
     seg = seg.astype(np.int32)
     p = rp.default_render_params(VOL, show_seg=True, show_pred=False)
     renderer = BratsRenderer(mods, seg, None, width=WIDTH, height=HEIGHT)
@@ -200,7 +241,7 @@ def run(torch) -> int:
     torch.cuda.synchronize()
     img_p = warp.warp_screen_plain(C_p, s, fr.axis, WIDTH, HEIGHT)
     err_k2 = float((img_k - img_p).abs().max())
-    n_active, n_labeled = int(n_active), int(n_labeled)
+    n_active, n_labeled = int(n_active), int(n_labeled.sum())
     log("kernels", f"pose orbit: axis {fr.axis}, K={K} planes, Na={Na}, "
         f"O={O}, crop k={fr.z_offset} ab={fr.ab_offset}, active "
         f"(pixel, plane) pairs {n_active}, of which overlay taps with a "
@@ -303,8 +344,8 @@ def run(torch) -> int:
                         ("stage 1", stage1_fn, 10)):
         t[name] = (device_ms(torch, fn, n),
                    cuda_ms(torch, fn, n, 1 if "plain" in name else 2))
-        log("timing", f"{name}: device {t[name][0]:.4f} ms, CUDA events "
-            f"{t[name][1]:.4f} ms (mean of {n} calls)")
+        log("timing", f"{name}: device {t[name][0]:.4f} ms (cold L2), CUDA "
+            f"events {t[name][1]:.4f} ms back to back (mean of {n} calls)")
 
     overlays = sum(r is not None for r in (k1.seg_rows, k1.pred_rows))
     k1_bytes = (k1.t1b.numel() * 2 + overlays * k1.t1b.numel()
@@ -350,7 +391,10 @@ def run(torch) -> int:
             log("profile", f"{us / 1e3 / PROFILE_FRAMES:8.4f} ms/frame "
                 f"{n / PROFILE_FRAMES:5.1f}x  {name[:90]}")
 
-    # --------------------------------------------------------- 8. report
+    # --------------------------------------------------------- 8. neural
+    k1b_entry = neural_phase(torch, raw, mods, seg, radius, card)
+
+    # --------------------------------------------------------- 9. report
     report = {"kernels": [
         {"name": "K1a composite", "route": "cuda",
          "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
@@ -364,6 +408,7 @@ def run(torch) -> int:
          "launches": launches["K2"], "max_abs_err": err_k2,
          "ms": t["K2"][0], "plain_ms": t["K2 plain"][0], "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": t["grid_sample"][0]},
+        k1b_entry,
     ]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
@@ -371,6 +416,240 @@ def run(torch) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def neural_phase(torch, raw, mods, seg, radius: float, card: str) -> dict:
+    """Phase 8, the live-INR neural march (mode 2) at WIDTH^2 / VOL with
+    the repo's default INR. Returns the K1b entry of the kernels line."""
+    from mri_raytracer_tpu_torch.config import ModelConfig
+    from mri_raytracer_tpu_torch.data.brats import zscore_nonzero
+    from mri_raytracer_tpu_torch.eval.metrics import psnr
+    from mri_raytracer_tpu_torch.models.api import build_model
+    from mri_raytracer_tpu_torch.models.mlp import count_params
+    from mri_raytracer_tpu_torch.ops import composite, shearwarp, warp
+    from mri_raytracer_tpu_torch.ops import neural_march as nm
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+
+    t0 = time.perf_counter()
+    zsc = np.stack([zscore_nonzero(m.copy()) for m in raw])
+    cfg = ModelConfig()
+    model = build_model(cfg, num_modalities=len(raw))
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        params[-1].b += torch.tensor(BIAS_NUDGE)
+    p = rp.default_render_params(VOL, show_seg=True, show_pred=True)
+    renderer = nm.NeuralBratsRenderer(mods, zsc, seg, model, params,
+                                      width=WIDTH, height=HEIGHT)
+    if renderer.backend != "fused":
+        raise RuntimeError(f"backend 'auto' resolved to {renderer.backend}")
+    params = renderer.params
+    S, Kf = renderer.stride, renderer.kstride
+    log("neural", f"ModelConfig(): kind {cfg.kind}, hidden {cfg.hidden_dims}"
+        f", {cfg.fourier_freqs} harmonics, {cfg.num_classes} classes, "
+        f"in_dim {model.input_dim}, {count_params(params)} parameters "
+        f"(torch.Generator seed 0, last bias + {list(BIAS_NUDGE)}); "
+        f"backend {renderer.backend}, pred_stride {S}, pred_kstride {Kf}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+
+    # K1b against its plain version at the start pose.
+    basis = OrbitalCamera(radius=radius, theta=0.6, phi=1.2).basis()
+    fr = renderer.sweep_frame(basis, p)
+    flags = (fr.use_gamma, fr.use_clip)
+    field = nm.frame_field(model, params, fr, S, Kf)
+    k1 = composite.stage1(fr.mixed_s, fr.seg_s, None, fr.geom, fr.p, fr.axis,
+                          fr.out_res, fr.z_offset, fr.nk_global)
+    fkw = dict(pred_field=composite.field_labels(field), field_stride=S,
+               field_kstride=Kf)
+    C_k, T_k = composite.composite_planes(*k1, *flags, **fkw)
+    torch.cuda.synchronize()
+    C_p, T_p, n_active, n_labeled = composite.composite_planes_plain(
+        *k1, *flags, **fkw)
+    err = max(float((C_k - C_p).abs().max()), float((T_k - T_p).abs().max()))
+    K, Na, O = k1.t1b.shape
+    shares = torch.bincount(field.reshape(-1).long(),
+                            minlength=cfg.num_classes).cpu().numpy()
+    n_active, (n_seg, n_field) = int(n_active), n_labeled.tolist()
+    log("neural", f"pose orbit: axis {fr.axis}, K={K} planes, Na={Na}, "
+        f"O={O}, field {tuple(field.shape)}, crop k={fr.z_offset} "
+        f"ab={fr.ab_offset}; field label shares "
+        f"{[round(float(x), 4) for x in shares / field.numel()]}")
+    log("neural", f"active (pixel, plane) pairs {n_active}; overlay taps "
+        f"with a label in [1, 8): seg {n_seg}, field {n_field}")
+    log("neural", f"K1b composite max|kernel - plain| over C, T = {err:.3e} "
+        f"(tolerance {TOL})")
+    if not (bool(torch.isfinite(C_k).all()) and bool(torch.isfinite(T_k)
+                                                     .all())):
+        raise RuntimeError("K1b output is not finite")
+    if not err <= TOL:
+        raise RuntimeError("K1b disagrees with its plain version")
+    if n_field <= 0:
+        raise RuntimeError("the field put no label on the frame")
+
+    # The main neural path.
+    cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
+    for _ in range(NEURAL_WARMUP):
+        cam.orbit(0.03, 0.0)
+        img = renderer.render(cam.basis(), p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite.composite_planes.launches = 0
+    composite.composite_planes.field_launches = 0
+    warp.warp_screen.launches = 0
+    rates, frames = [], 0
+    for _ in range(BATCHES):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            cam.orbit(0.03, 0.01)
+            img = renderer.render(cam.basis(), p)
+            frames += 1
+        torch.cuda.synchronize()
+        rates.append(ITERS / (time.perf_counter() - t0))
+    launches = {"K1": composite.composite_planes.launches,
+                "K1b": composite.composite_planes.field_launches,
+                "K2": warp.warp_screen.launches}
+    log("neural", f"{frames} frames: launches {launches}")
+    if launches != {"K1": frames, "K1b": frames, "K2": frames}:
+        raise RuntimeError(f"launch counts {launches} != {frames} frames")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"bad neural frame: shape {tuple(img.shape)}")
+    fps = float(np.median(rates))
+    log("neural", f"fps median {fps:.2f} over {BATCHES} batches of {ITERS} "
+        f"(per batch {[round(r, 2) for r in rates]}), host clock around "
+        f"torch.cuda.synchronize(), {WIDTH}^2/{VOL[0]}^3 + seg + live INR, "
+        f"on {card}")
+    log("neural", f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated over the orbit)")
+
+    # Quality: the fused frame against the plain scan over the same
+    # prepared frame, geometry and field.
+    worst = None
+    for name, th, ph in POSES:
+        b = OrbitalCamera(radius=radius, theta=th, phi=ph).basis()
+        frq = renderer.sweep_frame(b, p)
+        fq = nm.frame_field(model, params, frq, S, Kf)
+        C = nm._render_neural_fused(frq, model, params, S, Kf, field=fq)
+        fused = shearwarp.warp_to_screen(C, frq.geom, frq.basis, frq.axis,
+                                         WIDTH, HEIGHT, frq.p.bg_color)
+        scan = nm._render_neural_axis(frq, model, params, WIDTH, HEIGHT, S,
+                                      Kf, field=fq)
+        q = psnr(fused.clamp(0.0, 1.0), scan.clamp(0.0, 1.0))
+        log("neural", f"quality {name} (theta {th:.3f}, phi {ph:.3f}): "
+            f"fused vs scan {q:.2f} dB (O={frq.out_res}, same field)")
+        worst = q if worst is None else min(worst, q)
+        if not q >= PSNR_MIN_DB:
+            raise RuntimeError(f"neural PSNR {q:.2f} dB at {name} < "
+                               f"{PSNR_MIN_DB}")
+    log("neural", f"quality min {worst:.2f} dB over {len(POSES)} poses")
+
+    # Timing at the start pose.
+    s = shearwarp.warp_scalars(fr.geom, fr.basis, fr.p.bg_color)
+    fns = (
+        ("predict_field", lambda: nm.frame_field(model, params, fr, S, Kf),
+         5),
+        ("stage 1", lambda: composite.stage1(
+            fr.mixed_s, fr.seg_s, None, fr.geom, fr.p, fr.axis, fr.out_res,
+            fr.z_offset, fr.nk_global), 10),
+        ("K1b", lambda: composite.composite_planes(*k1, *flags, **fkw), 20),
+        ("K1b plain", lambda: composite.composite_planes_plain(
+            *k1, *flags, **fkw), 2),
+        ("K2", lambda: warp.warp_screen(C_p, s, fr.axis, WIDTH, HEIGHT),
+         100),
+        ("bake_labels", lambda: nm.bake_labels(model, params,
+                                               renderer.modsz), 3),
+    )
+    t = {}
+    for name, fn, n in fns:
+        t[name] = (device_ms(torch, fn, n),
+                   cuda_ms(torch, fn, n, 1 if n < 5 else 2))
+        log("neural", f"timing {name}: device {t[name][0]:.4f} ms (cold L2), "
+            f"CUDA events {t[name][1]:.4f} ms back to back (mean of {n} "
+            "calls)")
+    k1b_bytes = (k1.t1b.numel() * 2 + k1.seg_rows.numel()
+                 + fkw["pred_field"].numel() + k1.pp.numel() * 4
+                 + (16 + 32) * 4 + 3 * O * O * 4 + 4 * O * O * 4)
+    k1b_ops = (n_active * (K1_OPS_PLANE + K1_OPS_NEAREST)
+               + (n_seg + n_field) * K1_OPS_LABEL)
+    k1b_bound, k1b_by = bound(k1b_bytes, k1b_ops, PEAK_FP32)
+    log("neural", f"K1b device {t['K1b'][0]:.4f} ms, bound {k1b_bound:.4f} "
+        f"ms by {k1b_by} ({k1b_bytes / 1e6:.1f} MB, {k1b_ops / 1e9:.3f} Gop "
+        f"fp32)")
+    dev_sum = sum(t[k][0] for k in ("predict_field", "stage 1", "K1b", "K2"))
+    log("neural", f"frame at {fps:.2f} fps = {1e3 / fps:.3f} ms host; "
+        f"predict_field + stage 1 + K1b + K2 device {dev_sum:.3f} ms "
+        f"(predict_field {t['predict_field'][0]:.3f}), on {card}")
+
+    def orbit_frame():
+        cam.orbit(0.03, 0.01)
+        renderer.render(cam.basis(), p)
+
+    by_name = device_activity(torch, orbit_frame, PROFILE_FRAMES)
+    if not by_name:
+        log("neural", "profile: device time not measured: the profiler saw "
+            "no device activity")
+    else:
+        busy_ms = sum(us for _, us in by_name.values()) / 1e3 / PROFILE_FRAMES
+        count = sum(n for n, _ in by_name.values()) / PROFILE_FRAMES
+        log("neural", f"profile per frame over {PROFILE_FRAMES} frames: "
+            f"{count:.1f} device activities, device busy {busy_ms:.3f} ms; "
+            f"device idle share of the unprofiled {1e3 / fps:.3f} ms frame "
+            f"{1.0 - busy_ms * fps / 1e3:.3f}, on {card}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        for name, (n, us) in top:
+            log("neural", f"profile {us / 1e3 / PROFILE_FRAMES:8.4f} ms/frame"
+                f" {n / PROFILE_FRAMES:6.1f}x  {name[:90]}")
+
+    # 'rebake': bake_labels into a BratsRenderer, whose K1 then reads the
+    # baked-pred rows (K1a) on the card.
+    rb = nm.NeuralBratsRenderer(mods, zsc, seg, model, params, width=WIDTH,
+                                height=HEIGHT, backend="rebake")
+    t0 = time.perf_counter()
+    rb.render(basis, p)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    fr_rb = rb.brats.sweep_frame(basis, p)
+    if fr_rb.pred_s is None:
+        raise RuntimeError("the rebake renderer holds no baked prediction")
+    for _ in range(NEURAL_WARMUP):
+        cam.orbit(0.03, 0.0)
+        rb.render(cam.basis(), p)
+    torch.cuda.synchronize()
+    composite.composite_planes.launches = 0
+    warp.warp_screen.launches = 0
+    rb_rates, rb_frames = [], 0
+    for _ in range(BATCHES):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            cam.orbit(0.03, 0.01)
+            img = rb.render(cam.basis(), p)
+            rb_frames += 1
+        torch.cuda.synchronize()
+        rb_rates.append(ITERS / (time.perf_counter() - t0))
+    rb_launches = {"K1": composite.composite_planes.launches,
+                   "K2": warp.warp_screen.launches}
+    if rb_launches != {"K1": rb_frames, "K2": rb_frames}:
+        raise RuntimeError(f"rebake launch counts {rb_launches} != "
+                           f"{rb_frames} frames")
+    if not bool(torch.isfinite(img).all()):
+        raise RuntimeError("bad rebake frame")
+    baked = rb.brats.pred
+    bshares = torch.bincount(baked.reshape(-1).long(),
+                             minlength=cfg.num_classes).cpu().numpy()
+    log("neural", f"rebake: first frame (bake + render) {first_ms:.1f} ms "
+        f"host; then fps median {float(np.median(rb_rates)):.2f} over "
+        f"{BATCHES} batches of {ITERS} (per batch "
+        f"{[round(r, 2) for r in rb_rates]}), launches {rb_launches} (K1 "
+        f"with baked-pred rows, O={fr_rb.out_res}); baked label shares "
+        f"{[round(float(x), 4) for x in bshares / baked.numel()]}")
+
+    return {"name": "K1b composite field", "route": "cuda",
+            "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
+            "replaces": "mri_raytracer_tpu/ops/pallas_composite.py:317",
+            "launches": launches["K1b"], "max_abs_err": err,
+            "ms": t["K1b"][0], "plain_ms": t["K1b plain"][0],
+            "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None}
 
 
 def main() -> int:

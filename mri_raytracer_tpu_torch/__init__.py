@@ -7,23 +7,28 @@ only — never ``jax`` and nothing of ``mri_raytracer_tpu`` — and keeps its
 own copies of the jax-free helpers it needs.
 
 Entry points (``render.brats.BratsRenderer``, ``ops.shearwarp.render_brats``,
-``ops.raymarch.render_brats``) run on ``cuda`` unless the caller passes
-``device="cpu"``; without a card they raise. The Pallas kernels of the JAX
-package are CUDA C++ kernels here (``csrc/``, built with ``nvcc`` at first
-use by ``ops.kernels``). Each kernel's wrapper runs its plain PyTorch version
-for CPU tensors (the tests) and launches the kernel for CUDA tensors.
+``ops.raymarch.render_brats``, ``ops.neural_march.NeuralBratsRenderer``,
+``ops.neural_march.render_brats_neural``, ``eval.inference.predict_volume``)
+run on ``cuda`` unless the caller passes ``device="cpu"``; without a card
+they raise. The Pallas kernels of the JAX package are CUDA C++ kernels here
+(``csrc/``, built with ``nvcc`` at first use by ``ops.kernels``). Each
+kernel's wrapper runs its plain PyTorch version for CPU tensors (the tests)
+and launches the kernel for CUDA tensors.
 
 Module map (port <- JAX package), where the path differs:
 
+    config.py            <- config.py: ModelConfig only (+ from_info)
     ops/raymarch.py      <- ops/raymarch_xla.py   (the lockstep oracle)
     ops/composite.py     <- ops/pallas_composite.py (stage 1 + kernel K1)
     ops/warp.py          <- ops/pallas_warp.py      (kernel K2)
     ops/kernels.py       (new: nvcc build + ctypes loader for csrc/*.cu)
-    csrc/composite.cu    <- pallas_composite._make_kernel         (K1a)
+    csrc/composite.cu    <- pallas_composite._make_kernel (K1a rows, K1b field)
     csrc/warp.cu         <- pallas_warp._make_warp_kernel         (K2)
-    convert.py           (new: JAX-side values -> port values)
+    io/checkpoint.py     <- io/checkpoint.py: the read side only
+    convert.py           (new: JAX-side values and INR weights -> port)
     env.py               (new: torch / CUDA / card / nvcc report)
 
-Same path on both sides: data/{synthetic,brats}.py, eval/metrics.py,
-ops/{trilinear,shearwarp}.py, render/{params,camera,brats}.py.
+Same path on both sides: data/{synthetic,brats}.py, eval/{metrics,
+inference}.py, models/{features,mlp,api}.py, ops/{trilinear,shearwarp,
+neural_march}.py, render/{params,camera,brats}.py.
 """

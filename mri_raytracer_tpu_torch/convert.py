@@ -1,19 +1,25 @@
 """Carry state across from the JAX package.
 
-The renderer's path has no learned weights: volumes and labels cross as
-numpy arrays. What does cross is the render parameters and the camera,
-whose JAX forms are a ``BratsRenderParams`` of arrays and a packed
-13-float camera vector; this module turns their numpy values into the
-port's tensors without importing anything of the JAX package.
+Volumes and labels cross as numpy arrays. What else crosses is the render
+parameters and the camera, whose JAX forms are a ``BratsRenderParams`` of
+arrays and a packed 13-float camera vector, and the INR's weights, a
+pytree of dicts and lists of arrays (also what ``io.checkpoint`` loads).
+This module turns their numpy values into the port's tensors and modules
+without importing anything of the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Union
+import dataclasses
+from typing import Any, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
+from mri_raytracer_tpu_torch.config import ModelConfig
+from mri_raytracer_tpu_torch.models import features
+from mri_raytracer_tpu_torch.models.api import ModelBundle, build_model
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, unpack_basis
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
 
@@ -48,3 +54,56 @@ def camera_from_packed(vec, device: Union[str, torch.device] = "cpu"
     if vec.shape != (13,):
         raise ValueError(f"packed camera must have 13 floats, got {vec.shape}")
     return unpack_basis(torch.as_tensor(vec, device=device))
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a.0.W': leaf} state-dict keys of a pytree of dicts and lists."""
+    if isinstance(tree, Mapping):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix[:-1]: np.asarray(tree, np.float32)}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
+def inr_params_from_numpy(tree: Any, cfg: Union[ModelConfig, Mapping],
+                          rff_B=None,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> Tuple[ModelBundle, nn.Module]:
+    """The port's ``(model, params)`` from a JAX INR params pytree with
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``, or what
+    ``io.checkpoint.load_params`` returns): a list of ``{'W', 'b'}`` (mlp,
+    coord_injection), ``{'l0': ..}`` (siren) or ``{'B', 'layers'}`` (mlp
+    with anisotropic features). ``cfg`` is a ``ModelConfig`` or its fields
+    as a mapping (``dataclasses.asdict`` of the JAX config). ``rff_B`` is
+    the JAX bundle's fixed RFF projection, needed when ``cfg.rff_dim > 0``
+    (torch cannot redraw it). The modality count is read off the first
+    layer's fan-in. Raises if a key or a shape does not fit the config."""
+    if not isinstance(cfg, ModelConfig):
+        names = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: v for k, v in cfg.items() if k in names})
+    if cfg.rff_dim > 0 and not cfg.aniso_features and rff_B is None:
+        raise ValueError("cfg.rff_dim > 0: pass the JAX bundle's rff_B")
+    state = _flatten(tree)
+    first = state.get("layers.0.W", state.get("0.W", state.get("l0.W")))
+    if first is None:
+        raise KeyError(f"no first-layer weight among {sorted(state)}")
+    if cfg.aniso_features:
+        feat_dim = 2 * cfg.rff_dim if cfg.rff_dim > 0 else 2 * 64
+    else:
+        feat_dim = features.feature_dim(3, cfg.fourier_freqs, cfg.rff_dim)
+    mod_dim = first.shape[0] - 3 - feat_dim
+    if mod_dim < 0 or (mod_dim and not cfg.use_modalities):
+        raise ValueError(f"first layer fan-in {first.shape[0]} does not fit "
+                         f"the config (coords + features = {3 + feat_dim})")
+    model = build_model(cfg, num_modalities=mod_dim, rff_B=rff_B)
+    params = model.init(torch.Generator().manual_seed(0))
+    try:
+        params.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    except RuntimeError as e:  # missing or unexpected keys, wrong shapes
+        raise ValueError(f"params do not fit the config: {e}") from None
+    return model, params.to(device)

@@ -1,9 +1,12 @@
 // Kernel K1: fused front-to-back shear-warp compositor, CUDA C++ for sm_90a.
 //
 // Replaces mri_raytracer_tpu/ops/pallas_composite.py::_make_kernel (launched
-// by sweep_composite_pallas, pallas_composite.py:575). Its plain PyTorch
-// version is mri_raytracer_tpu_torch/ops/composite.py::composite_planes_plain;
-// the arithmetic below follows it operation by operation.
+// by sweep_composite_pallas, pallas_composite.py:575), with both of its
+// overlay sources: K1a, the seg and baked-pred nearest rows, and K1b, the
+// mode-2 prediction field (pallas_composite.py:72-89, 124-135, 317-322). Its
+// plain PyTorch version is
+// mri_raytracer_tpu_torch/ops/composite.py::composite_planes_plain; the
+// arithmetic below follows it operation by operation.
 //
 // Design. One thread per intermediate pixel (i, j). A block covers kThreads
 // consecutive columns j of one row i, so a warp's threads share i, hence the
@@ -17,13 +20,22 @@
 // label per overlay. A ray leaves the loop once T <= 0.01: every later
 // plane has act = 0, the same result as the TPU kernel's tile culling.
 //
+// K1b. The field is (ceil(K / Kf), Op, Op) uint8 with Op = O / S: plane m
+// reads row m / Kf at (i / S, j / S), the TPU kernel's floor one-hot
+// upsampling along planes, rows and columns. The tap depends on the pixel
+// alone, so it is gated by the plane's activity only, not by the a-row
+// range check of the row overlays. The TPU kernel streamed the field as a
+// second DMA stream, zero-padded to 128 lanes; here a warp's 32 threads
+// read 32 / S neighbouring bytes of one field row, which stay in L1/L2
+// across the S rows i that share it.
+//
 // Bound. Bytes: the stage-1 rows, 2 + 1 (+1) bytes per (plane, a-row,
-// column), read once, plus three (O, O) maps in and 4 floats per pixel out.
-// Operations: ~40 fp32 operations and one expf per active (pixel, plane),
-// 3 more for the nearest label row when an overlay is on, and ~14 with
-// one expf per overlay tap whose label is in [1, 8) (label 0 is skipped).
-// The TPU kernel's fast/slow entry paths are one path here: the entry
-// correction is a few flops per pixel.
+// column), read once, the field once, plus three (O, O) maps in and 4
+// floats per pixel out. Operations: ~40 fp32 operations and one expf per
+// active (pixel, plane), 3 more for the nearest label row when a row
+// overlay is on, and ~14 with one expf per overlay tap whose label is in
+// [1, 8) (label 0 is skipped). The TPU kernel's fast/slow entry paths are
+// one path here: the entry correction is a few flops per pixel.
 
 #include <cstddef>
 #include <cstdint>
@@ -39,6 +51,7 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     const __nv_bfloat16* __restrict__ t1b,  // (K, Na, O)
     const uint8_t* __restrict__ seg_rows,   // (K, Na, O) or null
     const uint8_t* __restrict__ pred_rows,  // (K, Na, O) or null
+    const uint8_t* __restrict__ field,      // (ceil(K/Kf), Op, Op) or null
     const float* __restrict__ pp,           // (K, 7)
     const float* __restrict__ sc,           // (16,)
     const float* __restrict__ lut,          // (8, 4), row 0 transparent
@@ -47,7 +60,8 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     const float* __restrict__ r_map,        // (O, O)
     float* __restrict__ C,                  // (O, O, 3)
     float* __restrict__ T_out,              // (O, O)
-    int K, int Na, int O, int use_gamma, int use_clip) {
+    int K, int Na, int O, int S, int Kf, int Op, int use_gamma,
+    int use_clip) {
   extern __shared__ float s_pp[];
   __shared__ float s_lut[32];
   for (int t = threadIdx.x; t < K * 7; t += blockDim.x) s_pp[t] = pp[t];
@@ -75,6 +89,8 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
   const float fi = (float)i;
   const float fj = (float)j;
   const size_t plane = (size_t)Na * O;
+  // This pixel's field tap within a field row (K1b).
+  const size_t fpix = (size_t)(i / S) * Op + (size_t)(j / S);
 
   float cg = 0.f, lr = 0.f, lg = 0.f, lb = 0.f, T = 1.f;
   bool started = false;
@@ -82,8 +98,11 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     const float* q = s_pp + 7 * m;
     const float off_a = q[0], sc_a = q[1], off_b = q[2], sc_b = q[3];
     const float lam = q[4], own = q[5], q_m = q[6];
-    const float pos_a = off_a + fi * sc_a;
-    const float pos_b = off_b + fj * sc_b;
+    // Rounded as the plain version rounds them (no fused multiply-add):
+    // the box masks compare these positions with the box edges exactly, and
+    // a field label on an edge pixel shows whether that plane counted.
+    const float pos_a = __fadd_rn(off_a, __fmul_rn(fi, sc_a));
+    const float pos_b = __fadd_rn(off_b, __fmul_rn(fj, sc_b));
     bool act = pos_a >= mask_a_lo && pos_a <= mask_a_hi &&
                pos_b >= mask_b_lo && pos_b <= mask_b_hi && own > 0.f;
     if (use_clip) {
@@ -122,29 +141,33 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     cg = cg + aI * T * val;
     T = T * (1.f - aI);
 
+    // Label LUT overlays, in the TPU kernel's order: seg at 1x opacity,
+    // then pred at 1.5x from its baked rows or from the field. Label 0 (and
+    // anything outside [1, 8)) is transparent and changes nothing.
+    int labs[2] = {0, 0};
     if (seg_rows != nullptr || pred_rows != nullptr) {
       const int an =
           (int)rintf(fminf(fmaxf(pos_a, a_clamp_lo), a_clamp_hi_n));
-      const bool in_a = an >= 0 && an < Na;
-      const size_t off = in_a ? (size_t)m * plane + (size_t)an * O + j : 0;
-      // Label LUT overlays: seg at 1x opacity, baked pred at 1.5x. Label 0
-      // (and anything outside [1, 8)) is transparent and changes nothing.
-      const uint8_t* srcs[2] = {seg_rows, pred_rows};
-      const float rates[2] = {1.f, 1.5f};
-      const float shows[2] = {show_seg, show_pred};
-#pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        if (srcs[o] == nullptr || !in_a) continue;
-        const int lab = srcs[o][off];
-        if (lab <= 0 || lab >= 8) continue;
-        const float* c = s_lut + 4 * lab;
-        const float aS = (1.f - expf(-c[3] * dt_e * rates[o])) * shows[o];
-        const float w = aS * T;
-        lr = lr + w * c[0];
-        lg = lg + w * c[1];
-        lb = lb + w * c[2];
-        T = T * (1.f - aS);
+      if (an >= 0 && an < Na) {
+        const size_t off = (size_t)m * plane + (size_t)an * O + j;
+        if (seg_rows != nullptr) labs[0] = seg_rows[off];
+        if (pred_rows != nullptr) labs[1] = pred_rows[off];
       }
+    }
+    if (field != nullptr) labs[1] = field[(size_t)(m / Kf) * Op * Op + fpix];
+    const float rates[2] = {1.f, 1.5f};
+    const float shows[2] = {show_seg, show_pred};
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int lab = labs[o];
+      if (lab <= 0 || lab >= 8) continue;
+      const float* c = s_lut + 4 * lab;
+      const float aS = (1.f - expf(-c[3] * dt_e * rates[o])) * shows[o];
+      const float w = aS * T;
+      lr = lr + w * c[0];
+      lg = lg + w * c[1];
+      lb = lb + w * c[2];
+      T = T * (1.f - aS);
     }
   }
   C[pix * 3 + 0] = cg + lr;
@@ -156,20 +179,24 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
 }  // namespace
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 on success).
+// field may be null (then S, Kf, Op are unused); pred_rows and field are
+// never both given.
 extern "C" int mrt_composite(const void* t1b, const void* seg_rows,
-                             const void* pred_rows, const void* pp,
-                             const void* sc, const void* lut, const void* vmag,
-                             const void* dt_map, const void* r_map, void* C,
-                             void* T, int K, int Na, int O, int use_gamma,
-                             int use_clip, void* stream) {
+                             const void* pred_rows, const void* field,
+                             const void* pp, const void* sc, const void* lut,
+                             const void* vmag, const void* dt_map,
+                             const void* r_map, void* C, void* T, int K,
+                             int Na, int O, int S, int Kf, int Op,
+                             int use_gamma, int use_clip, void* stream) {
   const dim3 block(kThreads);
   const dim3 grid((O + kThreads - 1) / kThreads, O);
   const size_t smem = (size_t)K * 7 * sizeof(float);
   composite_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)t1b, (const uint8_t*)seg_rows,
-      (const uint8_t*)pred_rows, (const float*)pp, (const float*)sc,
-      (const float*)lut, (const float*)vmag, (const float*)dt_map,
-      (const float*)r_map, (float*)C, (float*)T, K, Na, O, use_gamma,
-      use_clip);
+      (const uint8_t*)pred_rows, (const uint8_t*)field, (const float*)pp,
+      (const float*)sc, (const float*)lut, (const float*)vmag,
+      (const float*)dt_map, (const float*)r_map, (float*)C, (float*)T, K, Na,
+      O, field != nullptr ? S : 1, field != nullptr ? Kf : 1,
+      field != nullptr ? Op : 0, use_gamma, use_clip);
   return (int)cudaGetLastError();
 }

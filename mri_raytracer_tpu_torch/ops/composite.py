@@ -7,6 +7,15 @@ order, the b-axis half of the separable resample as one batched bf16
 product ``t1b[m] = slice_m @ Wb_m^T`` (K, Na, O), and the seg / baked-pred
 nearest rows as an index gather (K, Na, O) uint8 — exact for labels.
 
+K1b, the mode-2 prediction field (``pallas_composite.py:72-89, 124-135,
+317-322``): instead of baked-pred rows the pred overlay may come from a
+``pred_field`` (ceil(K / Kf), O / S, O / S) uint8 of INR labels at stride
+S (``ops/neural_march.predict_field``). Plane m reads field row m // Kf at
+(i // S, j // S), at 1.5x opacity under ``show_pred``, gated by the
+plane's activity only: the tap depends on the intermediate pixel, not on
+the a-row. The Pallas kernel's 128-lane zero padding of the field has no
+counterpart here.
+
 K1 (``csrc/composite.cu``; replaces ``pallas_composite.py::_make_kernel``,
 launched at ``pallas_composite.py:575``): one thread per intermediate pixel
 loops over all K = Nk+1 planes with the running colour and transmittance in
@@ -40,11 +49,14 @@ _F32 = torch.float32
 
 
 def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
-                           dt_map, r_map, use_gamma: bool, use_clip: bool):
-    """Plain PyTorch version of K1. Returns (C (O,O,3), T (O,O), n_active,
-    n_labeled): n_active counts the (pixel, plane) pairs that composited,
-    n_labeled the overlay taps among them that carry a shown label in
-    [1, 8) (label 0 is transparent and needs no overlay work)."""
+                           dt_map, r_map, use_gamma: bool, use_clip: bool,
+                           pred_field=None, field_stride: int = 1,
+                           field_kstride: int = 1):
+    """Plain PyTorch version of K1 (K1b with ``pred_field``). Returns
+    (C (O,O,3), T (O,O), n_active, n_labeled): n_active counts the
+    (pixel, plane) pairs that composited, n_labeled (2,) the overlay taps
+    among them that carry a shown label in [1, 8), seg and pred (rows or
+    field); label 0 is transparent and needs no overlay work."""
     K, Na, O = t1b.shape
     dev = t1b.device
     (ww, wl, gamma, ia, near, far, show_seg, show_pred, bml, bmh, acl, ach,
@@ -59,7 +71,7 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     T = torch.ones_like(cg)
     started = torch.zeros_like(cg)
     n_active = torch.zeros((), dtype=torch.int64, device=dev)
-    n_labeled = torch.zeros((), dtype=torch.int64, device=dev)
+    n_labeled = torch.zeros(2, dtype=torch.int64, device=dev)
 
     def rows(src, m, a):
         """src[m, a, j] for every (i, j), zero where row a is outside
@@ -68,8 +80,12 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
         picked = src[m].index_select(0, torch.clamp(a, 0, Na - 1).reshape(-1))
         return torch.where(inb, picked.to(_F32), 0.0)
 
-    def overlay(src, m, an, T, act, dt_e, rate, show):
-        lab = rows(src, m, an).long()
+    if pred_field is not None:
+        # Field pixel of each intermediate pixel: (i // S, j // S).
+        fsel = torch.arange(O, device=dev) // field_stride
+
+    def overlay(lab, T, act, dt_e, rate, show):
+        lab = lab.long()
         rgba = lab_lut[torch.where(lab < 8, lab, 0)]
         a_lab = rgba[..., 3]
         aS = (1.0 - torch.exp(-a_lab * dt_e * rate)) * act * show
@@ -110,28 +126,35 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
 
         if seg_rows is not None or pred_rows is not None:
             an = torch.round(torch.clamp(pos_a, acl, acn)).long()
+        labs = []  # (source: 0 seg, 1 pred; labels; opacity rate; show)
         if seg_rows is not None:
-            r, g_, b, T, n = overlay(seg_rows, m, an, T, actf, dt_e, 1.0,
-                                  show_seg)
-            lr, lg, lb = lr + r, lg + g_, lb + b
-            n_labeled += n
+            labs.append((0, rows(seg_rows, m, an), 1.0, show_seg))
         if pred_rows is not None:
-            r, g_, b, T, n = overlay(pred_rows, m, an, T, actf, dt_e, 1.5,
-                                  show_pred)
+            labs.append((1, rows(pred_rows, m, an), 1.5, show_pred))
+        if pred_field is not None:
+            fm = pred_field[m // field_kstride]
+            labs.append((1, fm.index_select(0, fsel).index_select(1, fsel),
+                         1.5, show_pred))
+        for src, lab, rate, show in labs:
+            r, g_, b, T, n = overlay(lab, T, actf, dt_e, rate, show)
             lr, lg, lb = lr + r, lg + g_, lb + b
-            n_labeled += n
+            n_labeled[src] += n
     C = torch.stack([cg + lr, cg + lg, cg + lb], dim=-1)
     return C, T, n_active, n_labeled
 
 
 def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
-                     dt_map, r_map, use_gamma: bool, use_clip: bool
+                     dt_map, r_map, use_gamma: bool, use_clip: bool,
+                     pred_field=None, field_stride: int = 1,
+                     field_kstride: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 over the stage-1 rows -> (C (O,O,3), T (O,O)).
 
     t1b (K, Na, O) bf16; seg_rows / pred_rows (K, Na, O) uint8 labels in
     [0, 8) or None; pp (K, 7) and scalars (16,) float32 (layouts at the
-    top of this module); lut (8, 4); vmag, dt_map, r_map (O, O) float32. Launches
+    top of this module); lut (8, 4); vmag, dt_map, r_map (O, O) float32.
+    K1b: ``pred_field`` (ceil(K / field_kstride), O / field_stride,
+    O / field_stride) uint8 labels, in place of ``pred_rows``. Launches
     the kernel for CUDA tensors, runs the plain version for CPU tensors."""
     if t1b.dim() != 3:
         raise ValueError(f"t1b must be (K, Na, O), got {tuple(t1b.shape)}")
@@ -144,6 +167,17 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     for name, rows in (("seg_rows", seg_rows), ("pred_rows", pred_rows)):
         if rows is not None:
             checks.append((name, rows, torch.uint8, (K, Na, O)))
+    S, Kf = int(field_stride), int(field_kstride)
+    Op = 0
+    if pred_field is not None:
+        if pred_rows is not None:
+            raise ValueError("pred_field and pred_rows are exclusive")
+        if S < 1 or Kf < 1 or O % S:
+            raise ValueError(f"field_stride {S} must divide O = {O} and "
+                             f"field_kstride {Kf} be >= 1")
+        Op = O // S
+        checks.append(("pred_field", pred_field, torch.uint8,
+                       (-(-K // Kf), Op, Op)))
     for name, t, dtype, shape in checks:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, t1b on {dev}")
@@ -154,7 +188,8 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     if dev.type == "cpu":
         C, T, _, _ = composite_planes_plain(t1b, seg_rows, pred_rows, pp,
                                          scalars, lut, vmag, dt_map, r_map,
-                                         use_gamma, use_clip)
+                                         use_gamma, use_clip, pred_field, S,
+                                         Kf)
         return C, T
     if dev.type != "cuda":
         raise RuntimeError(f"no compositor for device {dev}")
@@ -167,25 +202,29 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     from mri_raytracer_tpu_torch.ops import kernels
 
     fn = kernels.function("composite", "mrt_composite", [
-        ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lut8 = sw._label_table(lut).to(_F32).contiguous()
     C = torch.empty((O, O, 3), dtype=_F32, device=dev)
     T = torch.empty((O, O), dtype=_F32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(t1b.data_ptr(), ptr(seg_rows), ptr(pred_rows), pp.data_ptr(),
-                 scalars.data_ptr(), lut8.data_ptr(), vmag.data_ptr(),
-                 dt_map.data_ptr(), r_map.data_ptr(), C.data_ptr(),
-                 T.data_ptr(), K, Na, O, int(use_gamma), int(use_clip),
-                 stream)
+        err = fn(t1b.data_ptr(), ptr(seg_rows), ptr(pred_rows),
+                 ptr(pred_field), pp.data_ptr(), scalars.data_ptr(),
+                 lut8.data_ptr(), vmag.data_ptr(), dt_map.data_ptr(),
+                 r_map.data_ptr(), C.data_ptr(), T.data_ptr(), K, Na, O, S,
+                 Kf, Op, int(use_gamma), int(use_clip), stream)
     if err != 0:
         raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
     composite_planes.launches += 1
+    if pred_field is not None:
+        composite_planes.field_launches += 1
     return C, T
 
 
+# Launches of the kernel, and of those the ones with a field (K1b).
 composite_planes.launches = 0
+composite_planes.field_launches = 0
 
 
 def nearest_rows(vol_s: torch.Tensor, zi, off_b, sc_b, out_res: int,
@@ -267,15 +306,28 @@ def stage1(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                     r_map.contiguous())
 
 
+def field_labels(field: torch.Tensor) -> torch.Tensor:
+    """Integer labels -> the uint8 field K1b reads; labels outside [1, 8)
+    (transparent) become 0, as ``nearest_rows`` stores them."""
+    return torch.where((field > 0) & (field < 8), field, 0).to(torch.uint8)
+
+
 def sweep_composite_fused(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                           pred_s: Optional[torch.Tensor], geom: sw.SweepGeom,
                           p: BratsRenderParams, axis: int, out_res: int,
                           use_gamma: bool = True, use_clip: bool = True,
-                          z_offset=None, nk_global: Optional[int] = None
+                          z_offset=None, nk_global: Optional[int] = None,
+                          pred_field: Optional[torch.Tensor] = None,
+                          field_stride: int = 1, field_kstride: int = 1
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused counterpart of ``shearwarp.sweep_composite`` (supersample 1):
     stage 1 then K1. Returns intermediate (O,O,3) emission and (O,O)
-    transmittance. Slab mode as in ``sweep_composite``."""
+    transmittance. Slab mode as in ``sweep_composite``. ``pred_field``:
+    integer INR labels (ceil((Nk+1) / field_kstride), O / field_stride,
+    O / field_stride) in sweep order, composited by K1b; exclusive with
+    ``pred_s``."""
     k1 = stage1(mixed_s, seg_s, pred_s, geom, p, axis, out_res, z_offset,
                 nk_global)
-    return composite_planes(*k1, use_gamma, use_clip)
+    field = None if pred_field is None else field_labels(pred_field)
+    return composite_planes(*k1, use_gamma, use_clip, field, field_stride,
+                            field_kstride)

@@ -1,0 +1,469 @@
+"""Fused neural-field march: the INR evaluated inside the renderer (port of
+``ops/neural_march.py``).
+
+Mode 2 of the BraTS renderer (``docs/Goals.md:33-34``): per sweep plane
+the z-scored modality volumes are resampled at a stride-S grid of the
+intermediate image by the same separable hat products as the intensity,
+the normalized coordinates come from the plane geometry, and the INR runs
+as one batch per block of planes (``predict_field``). The predicted class
+per sample feeds the same LUT compositing as the baked ``pred`` overlay
+(1.5x opacity), so mode 1 (``bake_labels`` + ``BratsRenderer``) and mode 2
+agree wherever the prediction field is locally constant.
+
+Compositors: 'fused' runs stage 1 and kernel K1 with the field (K1b,
+``ops/composite.py``), then K2; 'scan' runs the plain scan
+(``shearwarp.sweep_composite`` with the field overlay) and is the
+reference the fused frame is held against.
+
+Numerics follow the JAX package: the resample products and the MLP layers
+take bf16 operands with float32 accumulation (``shearwarp._bf16_dot``'s
+form: operands rounded to bf16, product in float32), and hidden states are
+rounded to bf16. Near-tie logits can flip their argmax between two
+implementations, so labels are compared by their mismatch fraction.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mri_raytracer_tpu_torch.env import resolve_device
+from mri_raytracer_tpu_torch.models.api import ModelBundle
+from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw
+from mri_raytracer_tpu_torch.render.brats import BratsRenderer
+from mri_raytracer_tpu_torch.render.camera import CameraBasis
+from mri_raytracer_tpu_torch.render.params import BratsRenderParams
+
+_F32 = torch.float32
+# Sweep axis -> for each of (x, y, z), its position among (k, a, b).
+_INV_ORDER = {0: (0, 1, 2), 1: (1, 0, 2), 2: (1, 2, 0)}
+_BACKENDS = ("auto", "fused", "scan", "rebake")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 and held in float32: a product of two such
+    operands is exact in float32, so a float32 matmul of them is JAX's
+    bf16 dot with ``preferred_element_type=f32``."""
+    return x.to(torch.bfloat16).to(_F32)
+
+
+def _axis_feat(t: torch.Tensor, K: int) -> torch.Tensor:
+    """(..., L) normalized coordinate -> (..., L, 1+2K) [t | sin | cos]."""
+    if K == 0:
+        return t[..., None]
+    freqs = torch.arange(1, K + 1, dtype=t.dtype, device=t.device) * math.pi
+    ang = t[..., None] * freqs
+    return torch.cat([t[..., None], torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _axis_slice(W1: torch.Tensor, c: int, K: int) -> torch.Tensor:
+    """W1 rows of coordinate c and its Fourier block, (1+2K, H)."""
+    rows = [W1[c:c + 1]]
+    if K > 0:
+        rows.append(W1[3 + c * 2 * K: 3 + (c + 1) * 2 * K])
+    return torch.cat(rows, dim=0)
+
+
+def _separable_first_layer_batched(layers, K: int, M: int, pos_an, pos_bn,
+                                   z_n, inv_order):
+    """First MLP layer over B sweep planes as rank-1 broadcasts.
+
+    Per plane each normalized coordinate is constant along one in-plane
+    axis (k: constant, a: rows, b: columns) and the deterministic Fourier
+    features are per-axis blocks of the input, so ``[coords | ff] @ W1``
+    splits into a row term + a column term + a constant, each computed on
+    O values instead of O^2 samples. pos_an (B, Oa), pos_bn (B, Ob), z_n
+    (B,) normalized coordinates. Returns (row (B,Oa,H), col (B,Ob,H),
+    const (B,H), W1_int (M,H))."""
+    W1 = layers[0].W
+    b1 = layers[0].b
+    H = W1.shape[1]
+    B = pos_an.shape[0]
+    row = torch.zeros((B, pos_an.shape[1], H), dtype=W1.dtype,
+                      device=W1.device)
+    col = torch.zeros((B, pos_bn.shape[1], H), dtype=W1.dtype,
+                      device=W1.device)
+    const = b1.expand(B, H)
+    for c in range(3):
+        src = inv_order[c]
+        contrib = {0: z_n[:, None], 1: pos_an, 2: pos_bn}[src]
+        g = _axis_feat(contrib, K) @ _axis_slice(W1, c, K)  # (B, O|1, H)
+        if src == 0:
+            const = const + g[:, 0]
+        elif src == 1:
+            row = row + g
+        else:
+            col = col + g
+    W1_int = W1[3 + (3 * 2 * K if K > 0 else 0):]  # (M, H)
+    if W1_int.shape[0] != M:
+        raise ValueError(f"first layer has {W1_int.shape[0]} intensity "
+                         f"rows, the volumes {M} modalities")
+    return row, col, const, W1_int
+
+
+def _separable_first_layer(layers, K: int, M: int, pos_an, pos_bn, z_n,
+                           inv_order, out_res: int):
+    """One plane of ``_separable_first_layer_batched``: pos_an, pos_bn
+    (O,), z_n (). Returns (row (O,H), col (O,H), const (H,), W1_int (M,H))."""
+    row, col, const, W1_int = _separable_first_layer_batched(
+        layers, K, M, pos_an[None], pos_bn[None],
+        torch.as_tensor(z_n, dtype=_F32, device=pos_an.device).reshape(1),
+        inv_order)
+    return row[0], col[0], const[0], W1_int
+
+
+def _first_hidden(row, col, const, intens, W1_int) -> torch.Tensor:
+    """relu(row_i + col_j + const + intens @ W1_int) over (B, Oa, Ob),
+    rounded to bf16 (the JAX package's order of additions)."""
+    h = row[:, :, None, :] + col[:, None, :, :]
+    h += const[:, None, None, :]
+    h += _bf16(intens) @ _bf16(W1_int)
+    return torch.relu_(h).to(torch.bfloat16)
+
+
+def _mlp_tail(layers, h: torch.Tensor) -> torch.Tensor:
+    """Hidden layers 2..n + head, bf16 operands with float32 accumulation."""
+    for layer in layers[1:-1]:
+        h = torch.relu_(torch.addmm(layer.b, _bf16(h), _bf16(layer.W)))
+    last = layers[-1]
+    return torch.addmm(last.b, _bf16(h), _bf16(last.W))
+
+
+def model_is_separable(model: ModelBundle) -> bool:
+    """True when the first layer decomposes per axis (plain MLP over
+    [coords | deterministic Fourier features | modalities])."""
+    return (model.cfg.kind == "mlp" and not model.cfg.aniso_features
+            and model.cfg.rff_dim == 0 and model.cfg.use_modalities)
+
+
+def _norm_index(n: int, device) -> torch.Tensor:
+    """Voxel index -> [-1, 1], the INR's training convention."""
+    return (torch.arange(n, dtype=_F32, device=device) / (n - 1.0)) * 2.0 \
+        - 1.0
+
+
+@torch.no_grad()
+def bake_labels(model: ModelBundle, params, modsz: torch.Tensor,
+                block: int = 16) -> torch.Tensor:
+    """Voxel-grid bake: (M, X, Y, Z) z-scored modalities -> (X, Y, Z) int32
+    argmax labels, same convention as ``eval.inference._predict_labels``.
+
+    At voxel positions the intensity features are the voxels (no resample)
+    and the coordinate features are separable per axis, so the bake is
+    the separable first layer + the bf16 tail over blocks of X slices.
+    Non-separable models take the generic float32 path."""
+    if not model_is_separable(model):
+        from mri_raytracer_tpu_torch.eval.inference import _predict_labels
+
+        return _predict_labels(model, params, modsz).to(torch.int32)
+    M, X, Y, Z = modsz.shape
+    K = model.cfg.fourier_freqs
+    ys, zs, xs = (_norm_index(n, modsz.device) for n in (Y, Z, X))
+    out = []
+    for x0 in range(0, X, block):
+        x1 = min(x0 + block, X)
+        B = x1 - x0
+        row, col, const, W1_int = _separable_first_layer_batched(
+            params, K, M, ys.expand(B, Y), zs.expand(B, Z), xs[x0:x1],
+            (0, 1, 2))
+        intens = modsz[:, x0:x1].permute(1, 2, 3, 0)  # (B, Y, Z, M)
+        h = _first_hidden(row, col, const, intens, W1_int)
+        logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
+        out.append(torch.argmax(logits, dim=-1).reshape(B, Y, Z))
+    return torch.cat(out).to(torch.int32)
+
+
+@torch.no_grad()
+def predict_field(model: ModelBundle, params, modsz_s: torch.Tensor,
+                  geom: sw.SweepGeom, p: BratsRenderParams, axis: int,
+                  out_res: int, stride: int, z_offset=None,
+                  nk_global: Optional[int] = None, block: int = 16,
+                  kstride: int = 1) -> torch.Tensor:
+    """INR labels at strided intermediate positions of the sweep planes.
+
+    Returns (ceil(n_planes / kstride), Op, Op) int32 labels,
+    Op = out_res // stride, in SWEEP order (plane m * kstride, flip
+    applied): the field K1b composites (plane m reads row m // kstride).
+    Per block of planes, the z-scored modalities are resampled by the
+    separable hat products at the strided grid and the MLP runs as one
+    (B*Op*Op, H) batch.
+
+    ``modsz_s``: (M, K, Na, Nb) permuted (and possibly content-cropped)
+    z-scored modalities; the crop contract matches
+    ``shearwarp.render_prepared`` (``z_offset``/``nk_global`` + geom's
+    in-plane offsets). Coordinates are normalized GLOBAL indices.
+    """
+    M, Nk, Na, Nb = modsz_s.shape
+    Op = out_res // stride
+    if Op * stride != out_res:
+        raise ValueError(f"stride {stride} must divide out_res {out_res}")
+    dev = modsz_s.device
+    nk_g = nk_global if nk_global is not None else Nk
+    n_all = Nk + 1
+
+    # The compositor's plane affines, in sweep order.
+    z, z_glob, _, off_a, sc_a, off_b, sc_b = sw.sweep_plane_affines(
+        geom, p, axis, n_all, z_offset=z_offset)
+    n_planes = -(-n_all // kstride)
+    if kstride > 1:
+        ms = torch.clamp(torch.arange(n_planes, device=dev) * kstride,
+                         max=n_all - 1)
+        z, z_glob, off_a, sc_a, off_b, sc_b = (
+            t[ms] for t in (z, z_glob, off_a, sc_a, off_b, sc_b))
+    zi = torch.clamp(z, 0.0, Nk - 1).long()
+
+    acl, ach, _, aml, amh = sw._geom_bounds(geom, 0, Na)
+    bcl, bch, _, bml, bmh = sw._geom_bounds(geom, 1, Nb)
+
+    # Global dims along (k, a, b); na_g < 0 means uncropped.
+    inv_order = _INV_ORDER[axis]
+    na_gf = sw._where(geom.na_g < 0, float(Na), geom.na_g)
+    nb_gf = sw._where(geom.nb_g < 0, float(Nb), geom.nb_g)
+    dims_g = (torch.tensor(float(nk_g), device=dev), na_gf, nb_gf)
+
+    def norm(t, d):
+        return (t / (d - 1.0)) * 2.0 - 1.0
+
+    separable = model_is_separable(model)
+    K = model.cfg.fourier_freqs
+    iis = torch.arange(Op, dtype=_F32, device=dev) * stride
+    fields = []
+    for m0 in range(0, n_planes, block):
+        sl_m = slice(m0, min(m0 + block, n_planes))
+        oa, sa, ob, sb = off_a[sl_m], sc_a[sl_m], off_b[sl_m], sc_b[sl_m]
+        Wa, _ = sw._batched_hat(oa, sa * stride, Na, Op, acl, ach, aml, amh)
+        Wb, _ = sw._batched_hat(ob, sb * stride, Nb, Op, bcl, bch, bml, bmh)
+        sl = modsz_s.index_select(1, zi[sl_m])  # (M, B, Na, Nb)
+        t1 = _bf16(Wa)[None] @ _bf16(sl)  # (M, B, Op, Nb)
+        v = _bf16(t1) @ _bf16(Wb).transpose(1, 2)[None]  # (M, B, Op, Op)
+        intens = v.permute(1, 2, 3, 0)  # (B, Op, Op, M)
+
+        pos_a_g = oa[:, None] + iis[None, :] * sa[:, None] + geom.a_off
+        pos_b_g = ob[:, None] + iis[None, :] * sb[:, None] + geom.b_off
+        z_g = z_glob[sl_m]
+        if separable:
+            row, col, const, W1_int = _separable_first_layer_batched(
+                params, K, M, norm(pos_a_g, dims_g[1]),
+                norm(pos_b_g, dims_g[2]), norm(z_g, dims_g[0]), inv_order)
+            h = _first_hidden(row, col, const, intens, W1_int)
+            logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
+        else:
+            B = z_g.shape[0]
+            perm_idx = (z_g[:, None, None].expand(B, Op, Op),
+                        pos_a_g[:, :, None].expand(B, Op, Op),
+                        pos_b_g[:, None, :].expand(B, Op, Op))
+            xyz = torch.stack([perm_idx[o] for o in inv_order], dim=-1)
+            dims_xyz = torch.stack([dims_g[o] for o in inv_order])
+            coords = (xyz / (dims_xyz - 1.0)) * 2.0 - 1.0
+            logits = model.apply(params, coords.reshape(-1, 3),
+                                 intens.reshape(-1, M))
+        fields.append(torch.argmax(logits, dim=-1).reshape(-1, Op, Op))
+    return torch.cat(fields).to(torch.int32)
+
+
+class NeuralFrame(NamedTuple):
+    """Per-frame inputs of the mode-2 compositors: the prepared (permuted,
+    possibly cropped) volumes, the crop contract of
+    ``shearwarp.render_prepared``, and the frame's sweep geometry."""
+
+    mixed_s: torch.Tensor  # (K, Na, Nb) blended display volume
+    modsz_s: torch.Tensor  # (M, K, Na, Nb) z-scored modalities
+    seg_s: Optional[torch.Tensor]  # (K, Na, Nb) int32
+    basis: CameraBasis
+    p: BratsRenderParams
+    axis: int
+    out_res: int
+    use_gamma: bool
+    use_clip: bool
+    z_offset: Optional[int]
+    nk_global: Optional[int]
+    ab_offset: Optional[Tuple[int, int]]
+    inplane_global: Optional[Tuple[int, int]]
+    geom: sw.SweepGeom
+
+
+def frame_field(model: ModelBundle, params, fr: NeuralFrame, stride: int,
+                kstride: int = 1, block: int = 16) -> torch.Tensor:
+    """``predict_field`` for one frame."""
+    return predict_field(model, params, fr.modsz_s, fr.geom, fr.p, fr.axis,
+                         fr.out_res, stride, fr.z_offset, fr.nk_global,
+                         block, kstride)
+
+
+def _render_neural_axis(fr: NeuralFrame, model: ModelBundle, params,
+                        width: int, height: int, pred_stride: int = 1,
+                        pred_kstride: int = 1,
+                        field: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mode-2 frame by the plain scan -> (H, W, 3): the field (computed
+    here unless injected) composited by ``shearwarp.sweep_composite``."""
+    if field is None:
+        field = frame_field(model, params, fr, pred_stride, pred_kstride)
+    C, _ = sw.sweep_composite(
+        fr.mixed_s, fr.seg_s, None, fr.geom, fr.p, fr.axis, fr.out_res, 1,
+        fr.use_gamma, fr.use_clip, fr.z_offset, fr.nk_global,
+        pred_field=field, field_stride=pred_stride,
+        field_kstride=pred_kstride)
+    return sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis, width, height,
+                             fr.p.bg_color)
+
+
+def _render_neural_fused(fr: NeuralFrame, model: ModelBundle, params,
+                         stride: int, kstride: int = 1, block: int = 16,
+                         field: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mode-2 fast path -> the intermediate (O, O, 3) image: the strided
+    field (computed here unless injected), then stage 1 and K1 with the
+    field (K1b). The caller warps it (K2)."""
+    if field is None:
+        field = frame_field(model, params, fr, stride, kstride, block)
+    C, _ = composite.sweep_composite_fused(
+        fr.mixed_s, fr.seg_s, None, fr.geom, fr.p, fr.axis, fr.out_res,
+        fr.use_gamma, fr.use_clip, fr.z_offset, fr.nk_global,
+        pred_field=field, field_stride=stride, field_kstride=kstride)
+    return C
+
+
+def render_brats_neural(mods_disp, mods_zscore, seg, model: ModelBundle,
+                        params, basis: CameraBasis, p: BratsRenderParams,
+                        width: int = 512, height: int = 512,
+                        out_res: Optional[int] = None, pred_stride: int = 1,
+                        pred_kstride: int = 1,
+                        geom: Optional[sw.SweepGeom] = None,
+                        field=None, device=None) -> torch.Tensor:
+    """Mode-2 render by the plain scan: intensity + GT seg + LIVE INR
+    prediction overlay -> (H, W, 3) on ``device`` (``cuda`` unless given;
+    ``params`` is moved there).
+
+    mods_disp: display-normalized volumes (percentile) for the emission;
+    mods_zscore: z-scored volumes matching the INR's training
+    normalization. ``pred_stride``: evaluate the INR on a strided in-plane
+    grid (nearest-sampled overlay); ``pred_kstride``: on every K-th sweep
+    plane (nearest along the sweep), as the fused path does. ``geom`` and
+    ``field`` (``predict_field``'s output) may be injected, so that two
+    compositors can be compared on the same inputs: geometry computed
+    twice differs in the last bits, enough to flip near-tie labels.
+    """
+    dev = resolve_device(device)
+    out_res = out_res or max(width, height)
+    axis = sw.dominant_axis(basis)
+    mods = torch.as_tensor(mods_disp, dtype=_F32, device=dev)
+    modsz = torch.as_tensor(mods_zscore, dtype=_F32, device=dev)
+    seg = None if seg is None else \
+        torch.as_tensor(seg, device=dev).to(torch.int32)
+    p = p.to(dev)
+    basis = basis.to(dev)
+    mixed_s, seg_s, _ = sw.prepare_sweep_volumes(mods, seg, None, p, axis)
+    modsz_s = torch.stack([sw._perm_volume(m, axis) for m in modsz])
+    if geom is None:
+        geom = sw.sweep_geometry(basis, p, tuple(mixed_s.shape), axis,
+                                 out_res, frustum_wh=(width, height))
+    fr = NeuralFrame(mixed_s, modsz_s, seg_s, basis, p, axis, out_res,
+                     True, True, None, None, None, None, geom)
+    if field is not None:
+        field = torch.as_tensor(field, device=dev)
+    return _render_neural_axis(fr, model, params.to(dev), width, height,
+                               pred_stride, pred_kstride, field)
+
+
+class NeuralBratsRenderer:
+    """Interactive mode-2 renderer: LIVE INR prediction overlay evaluated
+    inside the sweep (``docs/Goals.md:33-34``).
+
+    Backends: 'fused' (``predict_field``, stage 1 + K1 with the field,
+    K2), 'scan' (the plain scan, ``render_brats_neural``), 'rebake'
+    (``bake_labels`` re-run lazily after every ``set_params`` and rendered
+    as the baked pred overlay: on a card K1 reads the baked-pred rows),
+    'auto' ('fused' on a card, 'scan' on the CPU). One ``BratsRenderer``
+    (``self.brats``) holds the volumes, the content crop and the
+    prepared-volume cache for every backend; 'fused' takes its frames with
+    the z-scored modalities cropped alongside, so INR predictions outside
+    the mods|seg box are not rendered. Runs on ``device`` (``cuda`` unless
+    given); ``params`` is moved there.
+    """
+
+    def __init__(self, mods_disp, mods_zscore, seg, model: ModelBundle,
+                 params, width: int = 1024, height: int = 1024,
+                 pred_stride: int = 4, backend: str = "auto",
+                 sweep_res: Optional[int] = None, pred_kstride: int = 1,
+                 device=None):
+        self.device = resolve_device(device)
+        if backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose from "
+                             f"{_BACKENDS}")
+        if backend == "auto":
+            backend = "fused" if self.device.type == "cuda" else "scan"
+        self.backend = backend
+        self.model = model
+        self.params = params.to(self.device)
+        self.width = int(width)
+        self.height = int(height)
+        self.stride = int(pred_stride)
+        self.kstride = int(pred_kstride)
+        self.sweep_res = sweep_res
+        base_res = int(sweep_res or max(width, height))
+        if backend != "rebake" and (base_res % self.stride
+                                    or 128 % self.stride):
+            # In-plane crops shrink out_res to 128-multiples, so the stride
+            # must divide both the base resolution and 128.
+            raise ValueError(
+                f"pred_stride={pred_stride} must divide sweep resolution "
+                f"{base_res} and 128 (use 1, 2, 4 or 8)")
+        self.modsz = torch.as_tensor(mods_zscore, dtype=_F32,
+                                     device=self.device)
+        self.brats = BratsRenderer(
+            mods_disp, seg, None, width=width, height=height,
+            sweep_res=sweep_res,
+            extra=self.modsz if backend == "fused" else None,
+            device=self.device)
+        self.mods, self.seg = self.brats.mods, self.brats.seg
+        self._dirty = True
+
+    def set_params(self, params) -> None:
+        """Swap INR weights (e.g. every few training steps); the field is
+        recomputed per frame, the 'rebake' backend re-bakes at the next
+        render."""
+        self.params = params.to(self.device)
+        self._dirty = True
+
+    def sweep_frame(self, basis: CameraBasis, p: BratsRenderParams
+                    ) -> NeuralFrame:
+        """The fused path's per-frame inputs: ``BratsRenderer.sweep_frame``
+        (cached content-cropped volumes, device params, sweep axis, crop
+        contract) with the cropped z-scored modalities, and the geometry."""
+        fr = self.brats.sweep_frame(basis, p)
+        geom = sw.content_geometry(fr.basis, fr.p, tuple(fr.mixed_s.shape),
+                                   fr.axis, fr.out_res, self.width,
+                                   self.height, fr.z_offset, fr.nk_global,
+                                   fr.ab_offset, fr.inplane_global)
+        return NeuralFrame(fr.mixed_s, fr.extra_s, fr.seg_s, fr.basis, fr.p,
+                           fr.axis, fr.out_res, fr.use_gamma, fr.use_clip,
+                           fr.z_offset, fr.nk_global, fr.ab_offset,
+                           fr.inplane_global, geom)
+
+    def render(self, basis: CameraBasis, p: BratsRenderParams
+               ) -> torch.Tensor:
+        """(H, W, 3) float32 frame on the renderer's device."""
+        if self.backend == "rebake":
+            if self._dirty:
+                self.brats.set_prediction(
+                    bake_labels(self.model, self.params, self.modsz))
+                self._dirty = False
+            return self.brats.render(basis, p)
+        if self.backend == "scan":
+            return render_brats_neural(
+                self.mods, self.modsz, self.seg, self.model, self.params,
+                basis, p, self.width, self.height, out_res=self.sweep_res,
+                pred_stride=self.stride, pred_kstride=self.kstride,
+                device=self.device)
+        fr = self.sweep_frame(basis, p)
+        C = _render_neural_fused(fr, self.model, self.params, self.stride,
+                                 self.kstride)
+        return sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis, self.width,
+                                 self.height, fr.p.bg_color)
+
+    def render_numpy(self, basis: CameraBasis, p: BratsRenderParams
+                     ) -> np.ndarray:
+        return self.render(basis, p).cpu().numpy()

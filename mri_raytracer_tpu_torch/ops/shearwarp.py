@@ -368,7 +368,9 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                     p: BratsRenderParams, axis: int, out_res: int,
                     supersample: int = 1, use_gamma: bool = True,
                     use_clip: bool = True, z_offset=None,
-                    nk_global: Optional[int] = None
+                    nk_global: Optional[int] = None,
+                    pred_field: Optional[torch.Tensor] = None,
+                    field_stride: int = 1, field_kstride: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain scan over slice planes; returns intermediate (O,O,3) emission
     and (O,O) transmittance. Volumes are pre-permuted to (K, A, B).
@@ -376,9 +378,22 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
     Slab mode: ``mixed_s`` holds slices [z_offset, z_offset + K) of an
     ``nk_global``-deep volume; the slab composites its own planes, plus the
     closing plane z = nk_global only when it holds the volume end.
+
+    ``pred_field``: the neural march's mode-2 overlay in place of
+    ``pred_s`` (``neural_march.py:383-395``): integer labels
+    (ceil(n_planes / field_kstride), O / field_stride, O / field_stride)
+    in sweep order; plane m reads row m // field_kstride, each label
+    nearest-replicated over a field_stride square.
     """
     Nk, Na, Nb = mixed_s.shape
     dev = mixed_s.device
+    if pred_field is not None:
+        n_rows = -(-(Nk * supersample + 1) // field_kstride)
+        want = (n_rows, out_res // field_stride, out_res // field_stride)
+        if pred_s is not None or out_res % field_stride \
+                or tuple(pred_field.shape) != want:
+            raise ValueError(f"pred_field must be {want} without pred_s, "
+                             f"got {tuple(pred_field.shape)}")
     bmin = _permute3(p.vol_min, axis)
     vox = _permute3(p.voxel_size, axis)
     slab_mode = z_offset is not None
@@ -465,8 +480,16 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
             rgba = _lut_rgba(_nearest_resample(seg_s, zn, Wan, Wbn), p.lut)
             a = (1.0 - torch.exp(-rgba[..., 3] * dt_e)) * act * show_seg
             C, T = _composite(C, T, rgba[..., :3], a)
+        pred = None
         if pred_s is not None:
-            rgba = _lut_rgba(_nearest_resample(pred_s, zn, Wan, Wbn), p.lut)
+            pred = _nearest_resample(pred_s, zn, Wan, Wbn)
+        elif pred_field is not None:
+            pred = pred_field[m // field_kstride].to(_F32)
+            if field_stride > 1:
+                pred = pred.repeat_interleave(field_stride, 0) \
+                    .repeat_interleave(field_stride, 1)
+        if pred is not None:
+            rgba = _lut_rgba(pred, p.lut)
             a = (1.0 - torch.exp(-rgba[..., 3] * dt_e * 1.5)) * act \
                 * show_pred
             C, T = _composite(C, T, rgba[..., :3], a)

@@ -45,6 +45,9 @@ class SweepFrame(NamedTuple):
     nk_global: Optional[int]
     ab_offset: Optional[Tuple[int, int]]
     inplane_global: Optional[Tuple[int, int]]
+    # The renderer's ``extra`` volumes, permuted and cropped like the rest;
+    # not an argument of ``render_prepared``.
+    extra_s: Optional[torch.Tensor] = None
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -59,7 +62,10 @@ class BratsRenderer:
     def __init__(self, mods, seg=None, pred=None, width: int = 1024,
                  height: int = 1024, max_steps: int = 1024,
                  backend: str = "auto", sweep_res: Optional[int] = None,
-                 supersample: int = 1, device=None):
+                 supersample: int = 1, extra=None, device=None):
+        """``extra``: optional (M', X, Y, Z) float volumes that each frame
+        carries permuted and cropped with the rest (``SweepFrame.extra_s``)
+        and that are not rendered: the neural march's z-scored modalities."""
         self.device = resolve_device(device)
         self.sweep_res = sweep_res
         self.supersample = supersample
@@ -69,6 +75,8 @@ class BratsRenderer:
             torch.as_tensor(seg, device=self.device).to(torch.int32)
         self.pred = None if pred is None else \
             torch.as_tensor(pred, device=self.device).to(torch.int32)
+        self.extra = None if extra is None else \
+            torch.as_tensor(extra, dtype=torch.float32, device=self.device)
         # Host-side occupancy bounding box (any modality or label nonzero):
         # the sweep crops to it along ALL THREE axes when the transfer
         # function maps empty space to zero (content crop, exact by
@@ -184,28 +192,36 @@ class BratsRenderer:
                      params.vol_weight.cpu().numpy().tobytes())
         vols = self._prep_cache.get(blend_key)
         if vols is None:
-            vols = shearwarp.prepare_sweep_volumes(self.mods, self.seg,
-                                                   self.pred, p_dev, axis)
+            extra_s = None if self.extra is None else torch.stack(
+                [shearwarp._perm_volume(v, axis) for v in self.extra])
+            vols = (*shearwarp.prepare_sweep_volumes(
+                self.mods, self.seg, self.pred, p_dev, axis), extra_s)
             for dim, (lo, hi) in enumerate(crops):
                 if (lo, hi) != (0, dims_perm[dim]):
+                    # The crop applies to each volume's last three dims.
                     vols = tuple(None if v is None
-                                 else v.narrow(dim, lo, hi - lo).contiguous()
+                                 else v.narrow(v.dim() - 3 + dim, lo, hi - lo)
                                  for v in vols)
+            vols = tuple(None if v is None else v.contiguous() for v in vols)
             self._prep_cache[blend_key] = vols
+        mixed_s, seg_s, pred_s, extra_s = vols
         slab = (k_lo, k_hi) != (0, nk)
         return SweepFrame(
-            *vols, basis.to(self.device), p_dev, axis, out_res, use_gamma,
-            use_clip, z_offset=k_lo if slab else None,
+            mixed_s, seg_s, pred_s, basis.to(self.device), p_dev, axis,
+            out_res, use_gamma, use_clip, z_offset=k_lo if slab else None,
             nk_global=nk if slab else None,
             ab_offset=(a_lo, b_lo) if inplane_cropped else None,
-            inplane_global=(na_g, nb_g) if inplane_cropped else None)
+            inplane_global=(na_g, nb_g) if inplane_cropped else None,
+            extra_s=extra_s)
 
     def _render_sweep(self, basis: CameraBasis, params) -> torch.Tensor:
+        frame = self.sweep_frame(basis, params)._asdict()
+        del frame["extra_s"]
         return shearwarp.render_prepared(
             width=self.width, height=self.height,
             supersample=self.supersample,
             composite="fused" if self.backend == "sweep_cuda" else "scan",
-            **self.sweep_frame(basis, params)._asdict())
+            **frame)
 
     def set_prediction(self, pred) -> None:
         """Upload an INR prediction volume (reference 'Load INR & Predict')."""

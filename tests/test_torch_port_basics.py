@@ -35,16 +35,23 @@ SHAPE = (24, 24, 20)
 PORT_MODULES = [
     "mri_raytracer_tpu_torch",
     "mri_raytracer_tpu_torch.env",
+    "mri_raytracer_tpu_torch.config",
     "mri_raytracer_tpu_torch.convert",
     "mri_raytracer_tpu_torch.data.synthetic",
     "mri_raytracer_tpu_torch.data.brats",
     "mri_raytracer_tpu_torch.eval.metrics",
+    "mri_raytracer_tpu_torch.eval.inference",
+    "mri_raytracer_tpu_torch.io.checkpoint",
+    "mri_raytracer_tpu_torch.models.features",
+    "mri_raytracer_tpu_torch.models.mlp",
+    "mri_raytracer_tpu_torch.models.api",
     "mri_raytracer_tpu_torch.ops.kernels",
     "mri_raytracer_tpu_torch.ops.trilinear",
     "mri_raytracer_tpu_torch.ops.raymarch",
     "mri_raytracer_tpu_torch.ops.shearwarp",
     "mri_raytracer_tpu_torch.ops.composite",
     "mri_raytracer_tpu_torch.ops.warp",
+    "mri_raytracer_tpu_torch.ops.neural_march",
     "mri_raytracer_tpu_torch.render.params",
     "mri_raytracer_tpu_torch.render.camera",
     "mri_raytracer_tpu_torch.render.brats",

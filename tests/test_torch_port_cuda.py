@@ -9,16 +9,20 @@ conftest imports JAX, so run it there with
 Tolerance 1e-3 (max abs): kernel and plain version read the same bf16
 stage-1 rows and do the same float32 operations in the same order; the
 compiler's fused multiply-adds and expf/powf/tanf may differ in the last
-bits. The sweep_cuda vs sweep comparison uses 3e-3, the bar between
-the fused compositor and the scan (tests/test_pallas_composite.py)."""
+bits. The sweep_cuda vs sweep comparison, and the neural fused frame vs
+the neural scan on the same field, use 3e-3, the bar between the fused
+compositor and the scan (tests/test_pallas_composite.py)."""
 
 import numpy as np
 import pytest
 import torch
 
-from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+from mri_raytracer_tpu_torch.config import ModelConfig
+from mri_raytracer_tpu_torch.data.brats import (percentile_normalize,
+                                                zscore_nonzero)
 from mri_raytracer_tpu_torch.data.synthetic import synthetic_case
-from mri_raytracer_tpu_torch.ops import composite, warp
+from mri_raytracer_tpu_torch.models.api import build_model
+from mri_raytracer_tpu_torch.ops import composite, neural_march, warp
 from mri_raytracer_tpu_torch.ops import shearwarp as sw
 from mri_raytracer_tpu_torch.render import params as rp
 from mri_raytracer_tpu_torch.render.brats import BratsRenderer
@@ -82,6 +86,88 @@ def test_k1_kernel_matches_plain(scene, theta, phi, pred, gamma, near, crop):
     assert int(n_active) > 0
     assert float((Ck - Cp).abs().max()) <= 1e-3
     assert float((Tk - Tp).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,kstride,with_seg,crop", [
+    (2, 1, True, False), (4, 2, False, False), (2, 2, True, True),
+    (4, 1, False, True)])
+def test_k1b_kernel_matches_plain(scene, stride, kstride, with_seg, crop):
+    """K1b: the prediction field overlay, labels 0..9 (8 and 9 are
+    transparent), at stride 2 and 4, every plane or every 2nd."""
+    dev = _card()
+    disp, seg = scene
+    p = rp.default_render_params(SHAPE, show_seg=with_seg, show_pred=True,
+                                 device=dev)
+    basis = _basis(p, 2.1, 0.7, dev)
+    axis = sw.dominant_axis(basis)
+    mixed, seg_s, _ = sw.prepare_sweep_volumes(
+        torch.as_tensor(disp, device=dev), torch.as_tensor(seg, device=dev),
+        None, p, axis)
+    kw = {}
+    if crop:
+        nk, na, nb = mixed.shape
+        mixed = mixed[3:nk - 5, 4:na - 2, 2:nb - 6].contiguous()
+        seg_s = seg_s[3:nk - 5, 4:na - 2, 2:nb - 6].contiguous()
+        kw = dict(z_offset=3, nk_global=nk, ab_offset=(4, 2),
+                  inplane_global=(na, nb))
+    geom = sw.content_geometry(basis, p, tuple(mixed.shape), axis, O, 96, 80,
+                               **kw)
+    k1 = composite.stage1(mixed, seg_s if with_seg else None, None, geom, p,
+                          axis, O, kw.get("z_offset"), kw.get("nk_global"))
+    K = k1.t1b.shape[0]
+    field = torch.randint(0, 10, (-(-K // kstride), O // stride, O // stride),
+                          generator=torch.Generator(dev).manual_seed(1),
+                          device=dev, dtype=torch.uint8)
+    flags = sw.static_flags(p)
+    fkw = dict(pred_field=field, field_stride=stride, field_kstride=kstride)
+    before = composite.composite_planes.field_launches
+    Ck, Tk = composite.composite_planes(*k1, *flags, **fkw)
+    torch.cuda.synchronize()
+    assert composite.composite_planes.field_launches == before + 1
+    Cp, Tp, n_active, n_labeled = composite.composite_planes_plain(
+        *k1, *flags, **fkw)
+    assert int(n_active) > 0 and int(n_labeled[1]) > 0
+    assert float((Ck - Cp).abs().max()) <= 1e-3
+    assert float((Tk - Tp).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_neural_fused_frame_matches_scan_and_counts():
+    """NeuralBratsRenderer('auto') resolves to 'fused' on the card; its
+    frame launches K1 and K2 once each and matches the plain scan over the
+    same prepared frame and field."""
+    dev = _card()
+    mods, seg = synthetic_case(SHAPE, seed=3)
+    disp = np.stack([percentile_normalize(m) for m in mods])
+    zsc = np.stack([zscore_nonzero(m.copy()) for m in mods])
+    model = build_model(ModelConfig(hidden_dims=(16, 16), fourier_freqs=4),
+                        num_modalities=4)
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        params[-1].b += torch.tensor([0.0, 0.4, 0.5, 0.45])
+    p = rp.default_render_params(SHAPE, show_seg=True, show_pred=True)
+    basis = OrbitalCamera(radius=rp.default_camera_radius(p, SHAPE),
+                          theta=0.85, phi=0.85).basis()
+    r = neural_march.NeuralBratsRenderer(disp, zsc, seg, model, params,
+                                         width=96, height=96, sweep_res=128,
+                                         pred_stride=2)
+    assert r.backend == "fused" and r.device.type == "cuda"
+    k1, k2 = composite.composite_planes.launches, warp.warp_screen.launches
+    img = r.render(basis, p)
+    torch.cuda.synchronize()
+    assert (composite.composite_planes.launches - k1,
+            warp.warp_screen.launches - k2) == (1, 1)
+    assert img.shape == (96, 96, 3) and bool(torch.isfinite(img).all())
+    fr = r.sweep_frame(basis, p)
+    field = neural_march.frame_field(model, r.params, fr, 2)
+    C = neural_march._render_neural_fused(fr, model, r.params, 2,
+                                          field=field)
+    fused = sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis, 96, 96,
+                              fr.p.bg_color)
+    scan = neural_march._render_neural_axis(fr, model, r.params, 96, 96, 2,
+                                            field=field)
+    assert float((fused - scan).abs().max()) <= 3e-3
 
 
 @pytest.mark.cuda
