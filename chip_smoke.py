@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives two paths of the port (``mri_raytracer_tpu_torch``) on a 256^3
+Drives the paths of the port (``mri_raytracer_tpu_torch``) on a 256^3
 four-modality synthetic volume (seed 0) with the GT-seg overlay at 1024^2:
 the interactive BraTS frame of ``bench.py``, rendered by
 ``BratsRenderer(backend="auto")``, which must resolve to ``sweep_cuda``
-(stage 1 in PyTorch, then the CUDA kernels K1 and K2); and the live-INR
+(stage 1 in PyTorch, then the CUDA kernels K1 and K2); the live-INR
 neural march (mode 2), rendered by ``NeuralBratsRenderer(backend="auto")``
 with the default INR (``ModelConfig()``, weights from a seed), which must
 resolve to ``fused`` (the INR's strided prediction field, stage 1, K1 with
-the field overlay K1b, K2). Phases:
+the field overlay K1b, K2); the frame's FLOP/MFU accounting of
+``bench.py``, whose exact stage-2 count comes from K1 with its
+executed-plane counter (K1c); and the two BraTS front ends, the viewer CLI
+and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -38,7 +41,20 @@ the field overlay K1b, K2). Phases:
               CUDA-event times of predict_field, stage 1, K1b, K2 and
               bake_labels, K1b's bound; a profile of the neural frame;
               and a few 'rebake' frames (K1 with baked-pred rows)
-  9. report   the kernels JSON line, the card's name and power limit, and
+  9. account  K1c held against its plain version at the start pose, C and
+              T bit-equal with the counter on and off, K1's device time
+              with and without it; then bench.py's accounting: ACCT_POSES
+              poses along the timed orbit, frame_stats + executed_planes
+              -> frame_flops, and mfu at phase 4's fps against the peak of
+              the card's name (K1c launches must equal ACCT_POSES)
+ 10. front    a 256^3 synthetic NIfTI case and a ModelConfig() checkpoint
+              written to disk; the viewer CLI on the case at 1024^2, plain
+              and with the checkpoint baked in (VIEWER_FRAMES PNGs each;
+              K1 and K2 launches = frames + warm-up), then with
+              --neural-march at a small size; the HTTP server on the case
+              at 1024^2: /info, / and SERVER_FRAMES /frame requests, each
+              200 with a 1024^2 PNG, timed as render + PNG encode
+ 11. report   the kernels JSON line, the card's name and power limit, and
               the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
@@ -48,9 +64,15 @@ without the port package. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import pathlib
+import struct
 import sys
+import tempfile
+import threading
 import time
 import traceback
+import urllib.request
+import warnings
 
 import numpy as np
 
@@ -59,6 +81,14 @@ VOL = (256, 256, 256)
 WARMUP, ITERS, BATCHES = 15, 15, 3
 PROFILE_FRAMES = 5
 NEURAL_WARMUP = 5
+ACCT_POSES = 5
+VIEWER_FRAMES = 5
+SERVER_FRAMES = 4
+# Warm-up frames of BratsRenderer.warmup: one per sweep axis.
+APP_WARMUP = 3
+# Front-end scratch (cases, checkpoint, PNGs), under the checkout's
+# gitignored build/ and removed at the end.
+BUILD = pathlib.Path(__file__).resolve().parent / "build"
 # Added to the random INR's last bias so that several classes appear
 # (tests/test_neural_march.py:176).
 BIAS_NUDGE = (0.0, 0.4, 0.5, 0.45)
@@ -72,11 +102,9 @@ PSNR_MIN_DB = 40.0
 POSES = [("orbit", 0.6, 1.2), ("face-x", 0.0, np.pi / 2),
          ("face-y", np.pi / 2, np.pi / 2), ("top", 0.3, 0.12),
          ("diag-low", 0.85, 0.6), ("diagonal", 0.85, 0.85)]
-# Published H100 SXM peaks (dense): HBM bytes/s, fp32 outside the tensor
-# cores, bf16 tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
+# The card's published peaks (dense bf16 tensor cores, fp32 outside them,
+# device memory bytes/s) come from utils/arith.py's table, by the card's
+# name: the bounds below and the MFU use the same numbers.
 # Overwritten before each timed call, so that no input is still in the
 # card's 50 MB L2 from the call before; its kernel's name holds FLUSH_OP,
 # which no timed function uses.
@@ -166,10 +194,10 @@ def device_ms(torch, fn, n: int) -> float:
     return ms
 
 
-def bound(nbytes: float, ops: float, peak_ops: float):
+def bound(peaks, nbytes: float, ops: float, peak_ops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate for their type."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / peaks.bytes * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -186,15 +214,25 @@ def run(torch) -> int:
     from mri_raytracer_tpu_torch.render import params as rp
     from mri_raytracer_tpu_torch.render.brats import BratsRenderer
     from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.utils import arith
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = env.power_limit() or "nvidia-smi not available"
     card = f"{torch.cuda.get_device_name(0)} [{smi}]"
+    # Every bound and the MFU divide by this card's peaks: the fallback
+    # warning for a card the table does not name fails the run, rather than
+    # report against another card's rates.
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        peaks = arith.device_peaks(0)
 
     # ------------------------------------------------------------- 1. env
     log("env", json.dumps(env.report()))
+    log("env", f"peaks for {torch.cuda.get_device_name(0)} (utils/arith.py): "
+        f"bf16 {peaks.bf16 / 1e12:.1f} TFLOP/s, fp32 {peaks.fp32 / 1e12:.1f}"
+        f" TFLOP/s, memory {peaks.bytes / 1e12:.2f} TB/s")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -233,15 +271,15 @@ def run(torch) -> int:
     K, Na, O = k1.t1b.shape
     C_k, T_k = composite.composite_planes(*k1, *flags)
     torch.cuda.synchronize()
-    C_p, T_p, n_active, n_labeled = composite.composite_planes_plain(
-        *k1, *flags)
+    plain = composite.composite_planes_plain(*k1, *flags)
+    C_p, T_p = plain.C, plain.T
     err_k1 = max(float((C_k - C_p).abs().max()), float((T_k - T_p).abs().max()))
     s = shearwarp.warp_scalars(geom, fr.basis, fr.p.bg_color)
     img_k = warp.warp_screen(C_p, s, fr.axis, WIDTH, HEIGHT)
     torch.cuda.synchronize()
     img_p = warp.warp_screen_plain(C_p, s, fr.axis, WIDTH, HEIGHT)
     err_k2 = float((img_k - img_p).abs().max())
-    n_active, n_labeled = int(n_active), int(n_labeled.sum())
+    n_active, n_labeled = int(plain.n_active), int(plain.n_labeled.sum())
     log("kernels", f"pose orbit: axis {fr.axis}, K={K} planes, Na={Na}, "
         f"O={O}, crop k={fr.z_offset} ab={fr.ab_offset}, active "
         f"(pixel, plane) pairs {n_active}, of which overlay taps with a "
@@ -264,6 +302,7 @@ def run(torch) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     composite.composite_planes.launches = 0
+    composite.composite_planes.count_launches = 0
     warp.warp_screen.launches = 0
     rates, frames = [], 0
     for _ in range(BATCHES):
@@ -275,10 +314,12 @@ def run(torch) -> int:
         torch.cuda.synchronize()
         rates.append(ITERS / (time.perf_counter() - t0))
     launches = {"K1": composite.composite_planes.launches,
+                "K1c": composite.composite_planes.count_launches,
                 "K2": warp.warp_screen.launches}
     log("main", f"{frames} frames: launches {launches}")
-    if launches != {"K1": frames, "K2": frames}:
-        raise RuntimeError(f"launch counts {launches} != {frames} frames")
+    if launches != {"K1": frames, "K1c": 0, "K2": frames}:
+        raise RuntimeError(f"launch counts {launches} != {frames} frames "
+                           "(and no K1c)")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or \
             not bool(torch.isfinite(img).all()):
         raise RuntimeError(f"bad frame: shape {tuple(img.shape)}")
@@ -351,15 +392,16 @@ def run(torch) -> int:
     k1_bytes = (k1.t1b.numel() * 2 + overlays * k1.t1b.numel()
                 + k1.pp.numel() * 4 + (16 + 32) * 4 + 3 * O * O * 4
                 + 4 * O * O * 4)
+    # n_active is the sum of the plain version's executed-plane map.
     k1_ops = (n_active * (K1_OPS_PLANE + (K1_OPS_NEAREST if overlays else 0))
               + n_labeled * K1_OPS_LABEL)
-    k1_bound, k1_by = bound(k1_bytes, k1_ops, PEAK_FP32)
+    k1_bound, k1_by = bound(peaks, k1_bytes, k1_ops, peaks.fp32)
     k2_bytes = O * O * 3 * 4 + 24 * 4 + HEIGHT * WIDTH * 3 * 4
-    k2_bound, k2_by = bound(k2_bytes, HEIGHT * WIDTH * K2_OPS_PIXEL,
-                            PEAK_FP32)
+    k2_bound, k2_by = bound(peaks, k2_bytes, HEIGHT * WIDTH * K2_OPS_PIXEL,
+                            peaks.fp32)
     bmm_bound, bmm_by = bound(
-        (slices.numel() + wb_t.numel() + K * Na * O) * 2,
-        2.0 * K * Na * Nb * O, PEAK_BF16)
+        peaks, (slices.numel() + wb_t.numel() + K * Na * O) * 2,
+        2.0 * K * Na * Nb * O, peaks.bf16)
     log("timing", f"K1 device {t['K1'][0]:.4f} ms, bound {k1_bound:.4f} ms "
         f"by {k1_by} ({k1_bytes / 1e6:.1f} MB, {k1_ops / 1e9:.3f} Gop fp32)")
     log("timing", f"K2 device {t['K2'][0]:.4f} ms, bound {k2_bound:.4f} ms "
@@ -392,9 +434,17 @@ def run(torch) -> int:
                 f"{n / PROFILE_FRAMES:5.1f}x  {name[:90]}")
 
     # --------------------------------------------------------- 8. neural
-    k1b_entry = neural_phase(torch, raw, mods, seg, radius, card)
+    k1b_entry = neural_phase(torch, raw, mods, seg, radius, card, peaks)
 
-    # --------------------------------------------------------- 9. report
+    # ------------------------------------------------------- 9. accounting
+    k1c_entry = accounting_phase(torch, renderer, p, radius, k1, flags,
+                                 plain, C_k, T_k, k1_bytes, k1_ops, fps,
+                                 t["K1 plain"][0], card, peaks)
+
+    # ------------------------------------------------------ 10. front ends
+    front_end_phase(torch, card)
+
+    # -------------------------------------------------------- 11. report
     report = {"kernels": [
         {"name": "K1a composite", "route": "cuda",
          "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
@@ -409,6 +459,7 @@ def run(torch) -> int:
          "ms": t["K2"][0], "plain_ms": t["K2 plain"][0], "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": t["grid_sample"][0]},
         k1b_entry,
+        k1c_entry,
     ]}
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
@@ -418,7 +469,8 @@ def run(torch) -> int:
     return 0
 
 
-def neural_phase(torch, raw, mods, seg, radius: float, card: str) -> dict:
+def neural_phase(torch, raw, mods, seg, radius: float, card: str,
+                 peaks) -> dict:
     """Phase 8, the live-INR neural march (mode 2) at WIDTH^2 / VOL with
     the repo's default INR. Returns the K1b entry of the kernels line."""
     from mri_raytracer_tpu_torch.config import ModelConfig
@@ -463,13 +515,13 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str) -> dict:
                field_kstride=Kf)
     C_k, T_k = composite.composite_planes(*k1, *flags, **fkw)
     torch.cuda.synchronize()
-    C_p, T_p, n_active, n_labeled = composite.composite_planes_plain(
+    C_p, T_p, planes, n_labeled = composite.composite_planes_plain(
         *k1, *flags, **fkw)
     err = max(float((C_k - C_p).abs().max()), float((T_k - T_p).abs().max()))
     K, Na, O = k1.t1b.shape
     shares = torch.bincount(field.reshape(-1).long(),
                             minlength=cfg.num_classes).cpu().numpy()
-    n_active, (n_seg, n_field) = int(n_active), n_labeled.tolist()
+    n_active, (n_seg, n_field) = int(planes.sum()), n_labeled.tolist()
     log("neural", f"pose orbit: axis {fr.axis}, K={K} planes, Na={Na}, "
         f"O={O}, field {tuple(field.shape)}, crop k={fr.z_offset} "
         f"ab={fr.ab_offset}; field label shares "
@@ -572,7 +624,7 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str) -> dict:
                  + (16 + 32) * 4 + 3 * O * O * 4 + 4 * O * O * 4)
     k1b_ops = (n_active * (K1_OPS_PLANE + K1_OPS_NEAREST)
                + (n_seg + n_field) * K1_OPS_LABEL)
-    k1b_bound, k1b_by = bound(k1b_bytes, k1b_ops, PEAK_FP32)
+    k1b_bound, k1b_by = bound(peaks, k1b_bytes, k1b_ops, peaks.fp32)
     log("neural", f"K1b device {t['K1b'][0]:.4f} ms, bound {k1b_bound:.4f} "
         f"ms by {k1b_by} ({k1b_bytes / 1e6:.1f} MB, {k1b_ops / 1e9:.3f} Gop "
         f"fp32)")
@@ -650,6 +702,233 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str) -> dict:
             "launches": launches["K1b"], "max_abs_err": err,
             "ms": t["K1b"][0], "plain_ms": t["K1b plain"][0],
             "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None}
+
+
+def accounting_phase(torch, renderer, p, radius: float, k1, flags, plain,
+                     C_k, T_k, k1_bytes: float, k1_ops: float, fps: float,
+                     plain_ms: float, card: str, peaks) -> dict:
+    """Phase 9: K1c and the frame's FLOP/MFU accounting (bench.py:135-181)
+    at the bench frame. Returns the K1c entry of the kernels line."""
+    from mri_raytracer_tpu_torch.ops import composite
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.utils import arith
+
+    # K1c against its plain version at the start pose (phase 3's inputs).
+    C_c, T_c, planes = composite.composite_planes(*k1, *flags,
+                                                  count_planes=True)
+    torch.cuda.synchronize()
+    O = planes.shape[0]
+    diff = (planes - plain.planes).abs()
+    n_diff, max_diff = int((diff > 0).sum()), int(diff.max())
+    same_img = torch.equal(C_c, C_k) and torch.equal(T_c, T_k)
+    err_ct = max(float((C_c - plain.C).abs().max()),
+                 float((T_c - plain.T).abs().max()))
+    log("account", f"K1c executed-plane map vs plain at the start pose: "
+        f"{n_diff} of {O * O} pixels differ, largest difference {max_diff} "
+        f"plane(s); kernel total {int(planes.sum())}, plain total "
+        f"{int(plain.n_active)}; C and T with the counter on "
+        f"{'bit-equal' if same_img else 'NOT bit-equal'} to it off; "
+        f"max|C, T - plain| {err_ct:.3e}")
+    # A pixel whose T lands within rounding of 0.01 may stop one plane
+    # earlier or later in the kernel than in the plain version.
+    if not (n_diff == 0 or (max_diff == 1 and n_diff <= 1e-4 * O * O)):
+        raise RuntimeError("K1c disagrees with its plain version")
+    if not same_img:
+        raise RuntimeError("the counter changed C or T")
+    if not err_ct <= TOL:
+        raise RuntimeError("K1c's C, T disagree with the plain version")
+
+    k1_fn = lambda: composite.composite_planes(*k1, *flags)
+    k1c_fn = lambda: composite.composite_planes(*k1, *flags,
+                                                count_planes=True)
+    t = {}
+    for name, fn in (("K1 counter off", k1_fn), ("K1c counter on", k1c_fn),
+                     ("K1 counter off again", k1_fn),
+                     ("K1c counter on again", k1c_fn)):
+        t[name] = (device_ms(torch, fn, 20), cuda_ms(torch, fn, 20))
+        log("account", f"{name}: device {t[name][0]:.4f} ms (cold L2), CUDA "
+            f"events {t[name][1]:.4f} ms back to back (mean of 20 calls)")
+    k1c_ms = 0.5 * (t["K1c counter on"][0] + t["K1c counter on again"][0])
+    k1_ms = 0.5 * (t["K1 counter off"][0] + t["K1 counter off again"][0])
+    k1c_bound, k1c_by = bound(peaks, k1_bytes + 4 * O * O, k1_ops,
+                              peaks.fp32)
+    log("account", f"K1c device {k1c_ms:.4f} ms vs K1 {k1_ms:.4f} ms "
+        f"(counter cost {k1c_ms - k1_ms:+.4f} ms), bound {k1c_bound:.4f} ms "
+        f"by {k1c_by}, on {card}")
+
+    # bench.py:148-158: ACCT_POSES poses along the timed orbit of phase 4.
+    composite.composite_planes.count_launches = 0
+    per_pose = []
+    n_timed = BATCHES * ITERS
+    for k in np.linspace(1, n_timed, ACCT_POSES):
+        basis = OrbitalCamera(radius=radius, theta=0.6 + 0.03 * (WARMUP + k),
+                              phi=1.2 + 0.01 * k).basis()
+        stats = renderer.frame_stats(basis, p)
+        counts = renderer.executed_planes(basis, p)
+        if counts.shape != (stats["out_res"],) * 2 or \
+                not 0 <= counts.min() <= counts.max() <= stats["planes"]:
+            raise RuntimeError(f"bad executed-plane map {counts.shape}, "
+                               f"[{counts.min()}, {counts.max()}]")
+        f = arith.frame_flops(stats, WIDTH, HEIGHT, executed_planes=counts)
+        per_pose.append(f)
+        log("account", f"pose k={k:g}: axis {stats['axis']}, K="
+            f"{stats['planes']}, Na={stats['Na']}, Nb={stats['Nb']}, O="
+            f"{stats['out_res']}; executed (pixel, plane) pairs "
+            f"{int(counts.sum(dtype=np.int64))}; GFLOP stage 1 "
+            f"{f['flops_stage1'] / 1e9:.3f}, stage 2 "
+            f"{f['flops_stage2'] / 1e9:.3f}; steps/ray eff "
+            f"{f['steps_per_ray_eff']:.2f} of {f['steps_per_ray_max']:.0f}")
+    launches = composite.composite_planes.count_launches
+    if launches != ACCT_POSES:
+        raise RuntimeError(f"K1c launches {launches} != {ACCT_POSES} poses")
+    mean = lambda key: float(np.mean([f[key] for f in per_pose]))
+    fl = mean("flops_total")
+    m = arith.mfu(fl, fps, 0)
+    exact = all(f["stage2_exact"] for f in per_pose)
+    log("account", f"{fl / 1e9:.3f} GFLOP/frame (stage 1 "
+        f"{mean('flops_stage1') / 1e9:.3f} + stage 2 "
+        f"{mean('flops_stage2') / 1e9:.3f} + warp "
+        f"{mean('flops_warp') / 1e9:.3f}) over {ACCT_POSES} poses -> "
+        f"{m['tflops_per_s']:.3f} TFLOP/s at phase 4's {fps:.2f} fps, MFU "
+        f"{100 * m['mfu']:.3f}% of the {m['peak_tflops']:.1f} TFLOP/s dense "
+        f"bf16 peak of {card}; steps/ray eff {mean('steps_per_ray_eff'):.2f}"
+        f" (max {mean('steps_per_ray_max'):.1f}); stage2_exact {exact}; "
+        f"K1c launches {launches}")
+    if not exact or not np.isfinite(fl) or fl <= 0:
+        raise RuntimeError("the accounting is not exact or not finite")
+
+    return {"name": "K1c composite echo='planes'", "route": "cuda",
+            "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
+            "replaces": "mri_raytracer_tpu/ops/pallas_composite.py:575",
+            "launches": launches, "max_abs_err": float(max_diff),
+            "ms": k1c_ms, "plain_ms": plain_ms, "bound_ms": k1c_bound,
+            "bound_by": k1c_by, "library_ms": None}
+
+
+def png_size(data: bytes):
+    """(width, height) from a PNG's IHDR chunk."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise RuntimeError("not a PNG")
+    return struct.unpack(">II", data[16:24])
+
+
+def front_end_phase(torch, card: str) -> None:
+    """Phase 10: the viewer CLI and the HTTP frame server on a 256^3 NIfTI
+    case at WIDTH x HEIGHT, through the entry points a user calls."""
+    import dataclasses
+
+    from mri_raytracer_tpu_torch.apps import brats_app, serve
+    from mri_raytracer_tpu_torch.config import ModelConfig
+    from mri_raytracer_tpu_torch.data.synthetic import write_synthetic_dataset
+    from mri_raytracer_tpu_torch.io.checkpoint import save_object
+    from mri_raytracer_tpu_torch.models.api import build_model
+    from mri_raytracer_tpu_torch.ops import composite, warp
+
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=BUILD) as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        case = write_synthetic_dataset(tmp / "data", num_cases=1, shape=VOL,
+                                       seed=0) / "BraTS-SYN-00000-000"
+        t_case = time.perf_counter() - t0
+        cfg = ModelConfig()
+        model = build_model(cfg, num_modalities=4)
+        params = model.init(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            params[-1].b += torch.tensor(BIAS_NUDGE)
+        ckpt = tmp / "inr.npz"
+        save_object(params, ckpt, info={"model": dataclasses.asdict(cfg)})
+        size_mb = sum(f.stat().st_size for f in case.iterdir()) / 2**20
+        log("front", f"wrote {case.name} ({VOL}, 5 .nii.gz, {size_mb:.1f} "
+            f"MiB) in {t_case:.1f} s, and a ModelConfig() checkpoint")
+
+        def counts():
+            return (composite.composite_planes.launches,
+                    warp.warp_screen.launches)
+
+        # The viewer CLI: plain, then with the checkpoint baked in.
+        for name, extra in (("plain", []),
+                            ("inr", ["--inr-checkpoint", str(ckpt)])):
+            out = tmp / f"viewer_{name}"
+            before = counts()
+            t0 = time.perf_counter()
+            rc = brats_app.main(["--case-dir", str(case), "--width",
+                                 str(WIDTH), "--height", str(HEIGHT),
+                                 "--frames", str(VIEWER_FRAMES), "--out",
+                                 str(out)] + extra)
+            wall = time.perf_counter() - t0
+            grew = tuple(a - b for a, b in zip(counts(), before))
+            pngs = sorted(out.glob("frame_*.png"))
+            sizes = {png_size(f.read_bytes()) for f in pngs}
+            log("front", f"viewer {name}: rc {rc}, {len(pngs)} PNGs of "
+                f"{sizes}, K1/K2 launches +{grew} (frames {VIEWER_FRAMES} + "
+                f"warm-up {APP_WARMUP}), {wall:.1f} s wall (load, warm-up, "
+                f"frames, PNG writes), on {card}")
+            want = VIEWER_FRAMES + APP_WARMUP
+            if rc != 0 or len(pngs) != VIEWER_FRAMES or \
+                    sizes != {(WIDTH, HEIGHT)} or grew != (want, want):
+                raise RuntimeError(f"viewer {name} failed")
+
+        # Mode 2 through the viewer: the plain scan evaluates the INR at
+        # every plane pixel at stride 1, so only as an entry check, small.
+        out = tmp / "viewer_neural"
+        t0 = time.perf_counter()
+        rc = brats_app.main(["--synthetic", "--synthetic-shape", "64,64,64",
+                             "--width", "128", "--height", "128", "--frames",
+                             "1", "--neural-march", "--inr-checkpoint",
+                             str(ckpt), "--out", str(out)])
+        pngs = sorted(out.glob("frame_*.png"))
+        log("front", f"viewer --neural-march (64^3, 128^2): rc {rc}, "
+            f"{len(pngs)} PNG, {time.perf_counter() - t0:.1f} s wall")
+        if rc != 0 or len(pngs) != 1 or \
+                png_size(pngs[0].read_bytes()) != (128, 128):
+            raise RuntimeError("viewer --neural-march failed")
+
+        # The HTTP frame server.
+        before = counts()
+        t0 = time.perf_counter()
+        service = serve.build_service(str(case), size=WIDTH)
+        srv = serve.make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        log("front", f"server up at {base} in {time.perf_counter() - t0:.1f}"
+            f" s (case load, warm-up)")
+        try:
+            for path in ("/info", "/"):
+                with urllib.request.urlopen(base + path, timeout=120) as r:
+                    body = r.read()
+                    if r.status != 200:
+                        raise RuntimeError(f"{path}: HTTP {r.status}")
+                log("front", f"GET {path}: 200, {len(body)} bytes"
+                    + (f": {body.decode()}" if path == "/info" else ""))
+            queries = ["theta=0.6&phi=1.2", "theta=0.9&phi=1.0",
+                       "theta=2.0&phi=0.7&preset=t1c-enhancing",
+                       "theta=3.5&phi=1.6&ww=0.8&wl=0.6&seg=0"]
+            for q in queries[:SERVER_FRAMES]:
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(base + "/frame?" + q,
+                                            timeout=120) as r:
+                    body = r.read()
+                    timing = r.headers.get("Server-Timing", "")
+                    status = r.status
+                ms = (time.perf_counter() - t0) * 1e3
+                size = png_size(body)
+                log("front", f"GET /frame?{q}: {status}, {size} PNG "
+                    f"{len(body)} bytes, {ms:.1f} ms at the client; server "
+                    f"{timing}, on {card}")
+                if status != 200 or size != (WIDTH, HEIGHT):
+                    raise RuntimeError(f"/frame?{q} failed")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+        grew = tuple(a - b for a, b in zip(counts(), before))
+        want = SERVER_FRAMES + APP_WARMUP
+        log("front", f"server K1/K2 launches +{grew} (requests "
+            f"{SERVER_FRAMES} + warm-up {APP_WARMUP})")
+        if grew != (want, want) or thread.is_alive():
+            raise RuntimeError("server launch counts or shutdown wrong")
 
 
 def main() -> int:

@@ -8,12 +8,14 @@ own copies of the jax-free helpers it needs.
 
 Entry points (``render.brats.BratsRenderer``, ``ops.shearwarp.render_brats``,
 ``ops.raymarch.render_brats``, ``ops.neural_march.NeuralBratsRenderer``,
-``ops.neural_march.render_brats_neural``, ``eval.inference.predict_volume``)
-run on ``cuda`` unless the caller passes ``device="cpu"``; without a card
-they raise. The Pallas kernels of the JAX package are CUDA C++ kernels here
-(``csrc/``, built with ``nvcc`` at first use by ``ops.kernels``). Each
-kernel's wrapper runs its plain PyTorch version for CPU tensors (the tests)
-and launches the kernel for CUDA tensors.
+``ops.neural_march.render_brats_neural``, ``eval.inference.predict_volume``,
+and the apps ``python -m mri_raytracer_tpu_torch.apps.brats_app`` /
+``.apps.serve``) run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``); without a card they raise. The Pallas kernels of the
+JAX package are CUDA C++ kernels here (``csrc/``, built with ``nvcc`` at
+first use by ``ops.kernels``). Each kernel's wrapper runs its plain PyTorch
+version for CPU tensors (the tests) and launches the kernel for CUDA
+tensors.
 
 Module map (port <- JAX package), where the path differs:
 
@@ -22,13 +24,17 @@ Module map (port <- JAX package), where the path differs:
     ops/composite.py     <- ops/pallas_composite.py (stage 1 + kernel K1)
     ops/warp.py          <- ops/pallas_warp.py      (kernel K2)
     ops/kernels.py       (new: nvcc build + ctypes loader for csrc/*.cu)
-    csrc/composite.cu    <- pallas_composite._make_kernel (K1a rows, K1b field)
+    csrc/composite.cu    <- pallas_composite._make_kernel (K1a rows, K1b
+                            field, K1c executed-plane counter)
     csrc/warp.cu         <- pallas_warp._make_warp_kernel         (K2)
-    io/checkpoint.py     <- io/checkpoint.py: the read side only
+    io/checkpoint.py     <- io/checkpoint.py: the two npz formats, read and
+                            write
+    io/png.py            (new: RGB8 PNG encoder, zlib + struct)
     convert.py           (new: JAX-side values and INR weights -> port)
     env.py               (new: torch / CUDA / card / nvcc report)
 
-Same path on both sides: data/{synthetic,brats}.py, eval/{metrics,
-inference}.py, models/{features,mlp,api}.py, ops/{trilinear,shearwarp,
-neural_march}.py, render/{params,camera,brats}.py.
+Same path on both sides: apps/{brats_app,serve}.py, data/{synthetic,brats,
+nifti}.py, eval/{metrics,inference}.py, models/{features,mlp,api}.py,
+ops/{trilinear,shearwarp,neural_march}.py, render/{params,camera,brats,
+presets}.py, utils/{arith,profiling}.py.
 """

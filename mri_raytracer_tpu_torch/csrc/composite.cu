@@ -3,7 +3,8 @@
 // Replaces mri_raytracer_tpu/ops/pallas_composite.py::_make_kernel (launched
 // by sweep_composite_pallas, pallas_composite.py:575), with both of its
 // overlay sources: K1a, the seg and baked-pred nearest rows, and K1b, the
-// mode-2 prediction field (pallas_composite.py:72-89, 124-135, 317-322). Its
+// mode-2 prediction field (pallas_composite.py:72-89, 124-135, 317-322);
+// and with its executed-plane counter, K1c (echo='planes', below). Its
 // plain PyTorch version is
 // mri_raytracer_tpu_torch/ops/composite.py::composite_planes_plain; the
 // arithmetic below follows it operation by operation.
@@ -29,13 +30,25 @@
 // read 32 / S neighbouring bytes of one field row, which stay in L1/L2
 // across the S rows i that share it.
 //
+// K1c. The TPU kernel's echo='planes' counter (pallas_composite.py:111,
+// 328-336, 351-353) counted, per (tile_i x O) tile, the planes whose
+// compute ran, and wrote that count in T's slot. Here the count is per
+// pixel: the planes whose act test passed, i.e. the (pixel, plane) pairs
+// that composited, the work these inputs need whatever tiles a compositor
+// uses. The TPU tile count bounds it from above, tile by tile (it charges
+// every pixel of a running tile and ignores the clip and pre-entry
+// gates). It is a template flag, as the TPU kernel's was static: the
+// launch without a counter compiles to the same code as before, and the
+// counting launch writes an extra (O, O) int32 map beside C and T.
+//
 // Bound. Bytes: the stage-1 rows, 2 + 1 (+1) bytes per (plane, a-row,
 // column), read once, the field once, plus three (O, O) maps in and 4
-// floats per pixel out. Operations: ~40 fp32 operations and one expf per
-// active (pixel, plane), 3 more for the nearest label row when a row
-// overlay is on, and ~14 with one expf per overlay tap whose label is in
-// [1, 8) (label 0 is skipped). The TPU kernel's fast/slow entry paths are
-// one path here: the entry correction is a few flops per pixel.
+// floats per pixel out (and 4 bytes more with the counter). Operations:
+// ~40 fp32 operations and one expf per active (pixel, plane), 3 more for
+// the nearest label row when a row overlay is on, and ~14 with one expf per
+// overlay tap whose label is in [1, 8) (label 0 is skipped). The TPU
+// kernel's fast/slow entry paths are one path here: the entry correction is
+// a few flops per pixel.
 
 #include <cstddef>
 #include <cstdint>
@@ -47,6 +60,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads) composite_kernel(
     const __nv_bfloat16* __restrict__ t1b,  // (K, Na, O)
     const uint8_t* __restrict__ seg_rows,   // (K, Na, O) or null
@@ -60,6 +74,7 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     const float* __restrict__ r_map,        // (O, O)
     float* __restrict__ C,                  // (O, O, 3)
     float* __restrict__ T_out,              // (O, O)
+    int32_t* __restrict__ planes,           // (O, O), written when kCount
     int K, int Na, int O, int S, int Kf, int Op, int use_gamma,
     int use_clip) {
   extern __shared__ float s_pp[];
@@ -94,6 +109,7 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
 
   float cg = 0.f, lr = 0.f, lg = 0.f, lb = 0.f, T = 1.f;
   bool started = false;
+  int n_planes = 0;  // K1c: planes that composited
   for (int m = 0; m < K && T > 0.01f; ++m) {
     const float* q = s_pp + 7 * m;
     const float off_a = q[0], sc_a = q[1], off_b = q[2], sc_b = q[3];
@@ -115,6 +131,7 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
     const float g = q_m - r;
     act = act && (g >= -1e-3f || r >= 1e37f);
     if (!act) continue;
+    if (kCount) ++n_planes;
 
     // The ray's first active plane extends its dt by the entry->crossing
     // distance g (clipped to [0, 2]; g >= 2 means no correction).
@@ -174,29 +191,35 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
   C[pix * 3 + 1] = cg + lg;
   C[pix * 3 + 2] = cg + lb;
   T_out[pix] = T;
+  if (kCount) planes[pix] = n_planes;
 }
 
 }  // namespace
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 on success).
 // field may be null (then S, Kf, Op are unused); pred_rows and field are
-// never both given.
+// never both given. planes may be null (K1 without the counter); given, the
+// counting variant writes each pixel's executed-plane count there (K1c).
 extern "C" int mrt_composite(const void* t1b, const void* seg_rows,
                              const void* pred_rows, const void* field,
                              const void* pp, const void* sc, const void* lut,
                              const void* vmag, const void* dt_map,
-                             const void* r_map, void* C, void* T, int K,
-                             int Na, int O, int S, int Kf, int Op,
-                             int use_gamma, int use_clip, void* stream) {
+                             const void* r_map, void* C, void* T,
+                             void* planes, int K, int Na, int O, int S,
+                             int Kf, int Op, int use_gamma, int use_clip,
+                             void* stream) {
   const dim3 block(kThreads);
   const dim3 grid((O + kThreads - 1) / kThreads, O);
   const size_t smem = (size_t)K * 7 * sizeof(float);
-  composite_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  auto kernel = planes != nullptr ? composite_kernel<true>
+                                  : composite_kernel<false>;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)t1b, (const uint8_t*)seg_rows,
       (const uint8_t*)pred_rows, (const uint8_t*)field, (const float*)pp,
       (const float*)sc, (const float*)lut, (const float*)vmag,
-      (const float*)dt_map, (const float*)r_map, (float*)C, (float*)T, K, Na,
-      O, field != nullptr ? S : 1, field != nullptr ? Kf : 1,
-      field != nullptr ? Op : 0, use_gamma, use_clip);
+      (const float*)dt_map, (const float*)r_map, (float*)C, (float*)T,
+      (int32_t*)planes, K, Na, O, field != nullptr ? S : 1,
+      field != nullptr ? Kf : 1, field != nullptr ? Op : 0, use_gamma,
+      use_clip);
   return (int)cudaGetLastError();
 }

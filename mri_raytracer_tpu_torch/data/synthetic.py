@@ -1,14 +1,24 @@
 """Synthetic multi-modal brain-like volumes (numpy).
 
-Own copy of ``mri_raytracer_tpu/data/synthetic.py::synthetic_case``; the
-two must stay bit-identical (``tests/test_torch_port_basics.py``).
+Own copy of ``mri_raytracer_tpu/data/synthetic.py``; each function must
+stay bit-identical to its original (``tests/test_torch_port_basics.py``,
+``tests/test_torch_port_apps.py``):
+  * ``synthetic_case``: (M, H, W, D) float32 modalities + (H, W, D) int16
+    seg with BraTS-like labels 0..3 (background / NCR-NET / edema /
+    enhancing)
+  * ``write_synthetic_dataset``: a BraTS-2023-layout tree of ``.nii.gz``
+    files (``{case}/{case}-{t1n,t1c,t2w,t2f,seg}.nii.gz``) for the same
+    ``find_cases``/``load_case`` path as real data
 """
 
 from __future__ import annotations
 
+import pathlib
 from typing import Tuple
 
 import numpy as np
+
+from mri_raytracer_tpu_torch.data import nifti
 
 
 def _coords(shape: Tuple[int, int, int]) -> np.ndarray:
@@ -59,3 +69,32 @@ def synthetic_case(shape: Tuple[int, int, int] = (64, 64, 48), seed: int = 0,
         vol = np.clip(vol, 0, None)
         mods.append(vol.astype(np.float32))
     return np.stack(mods, axis=0), seg
+
+
+def synthetic_u8_volume(shape: Tuple[int, int, int] = (64, 64, 64), seed: int = 0) -> np.ndarray:
+    """u8 density volume (analog of t1_icbm demo volume, reference H2)."""
+    mods, _ = synthetic_case(shape, seed=seed, num_modalities=1)
+    v = mods[0]
+    v = v / (v.max() + 1e-6)
+    return (v * 255.0).astype(np.uint8)
+
+
+def write_synthetic_dataset(root: pathlib.Path, num_cases: int = 3,
+                            shape: Tuple[int, int, int] = (32, 32, 24),
+                            seed: int = 0) -> pathlib.Path:
+    """BraTS-2023-layout synthetic dataset (uses label 4 on disk for the
+    'enhancing' class so the 4->3 remap path is exercised, matching the raw
+    BraTS convention the reference remaps at scripts/jax_inr_brats.py:81-82)."""
+    root = pathlib.Path(root)
+    suffixes = ["t1n", "t1c", "t2w", "t2f"]
+    for i in range(num_cases):
+        name = f"BraTS-SYN-{i:05d}-000"
+        cdir = root / name
+        cdir.mkdir(parents=True, exist_ok=True)
+        mods, seg = synthetic_case(shape, seed=seed + i)
+        seg_disk = seg.copy()
+        seg_disk[seg_disk == 3] = 4  # raw BraTS uses label 4 for enhancing
+        for m, suf in enumerate(suffixes):
+            nifti.save(cdir / f"{name}-{suf}.nii.gz", mods[m])
+        nifti.save(cdir / f"{name}-seg.nii.gz", seg_disk.astype(np.int16))
+    return root

@@ -16,6 +16,15 @@ plane's activity only: the tap depends on the intermediate pixel, not on
 the a-row. The Pallas kernel's 128-lane zero padding of the field has no
 counterpart here.
 
+K1c, the executed-plane counter (``echo='planes'``,
+``pallas_composite.py:111, 328-336, 351-353``): with ``count_planes`` the
+kernel also returns an (O, O) int32 map of the planes each pixel
+composited (in the content box, owning the plane, past the clip or
+``lam >= 0`` test and the pre-entry gate, before the T <= 0.01 exit), and
+keeps T. That is the work these inputs need, whatever the compositor's
+tiling; the Pallas kernel's per-tile count bounds it from above.
+``utils.arith.frame_flops`` turns it into the frame's exact stage-2 FLOPs.
+
 K1 (``csrc/composite.cu``; replaces ``pallas_composite.py::_make_kernel``,
 launched at ``pallas_composite.py:575``): one thread per intermediate pixel
 loops over all K = Nk+1 planes with the running colour and transmittance in
@@ -48,15 +57,29 @@ _F32 = torch.float32
 # a_clamp_hi_n, mask_a_lo, mask_a_hi, unused.
 
 
+class PlainK1(NamedTuple):
+    """What the plain version of K1 returns."""
+
+    C: torch.Tensor  # (O, O, 3)
+    T: torch.Tensor  # (O, O)
+    # (O, O) int32: each pixel's planes that composited, K1c's map.
+    planes: torch.Tensor
+    # (2,): overlay taps among them with a shown label in [1, 8), seg and
+    # pred (rows or field); label 0 is transparent and needs no work.
+    n_labeled: torch.Tensor
+
+    @property
+    def n_active(self) -> torch.Tensor:
+        """The (pixel, plane) pairs that composited."""
+        return self.planes.sum()
+
+
 def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
                            dt_map, r_map, use_gamma: bool, use_clip: bool,
                            pred_field=None, field_stride: int = 1,
-                           field_kstride: int = 1):
-    """Plain PyTorch version of K1 (K1b with ``pred_field``). Returns
-    (C (O,O,3), T (O,O), n_active, n_labeled): n_active counts the
-    (pixel, plane) pairs that composited, n_labeled (2,) the overlay taps
-    among them that carry a shown label in [1, 8), seg and pred (rows or
-    field); label 0 is transparent and needs no overlay work."""
+                           field_kstride: int = 1) -> PlainK1:
+    """Plain PyTorch version of K1 (K1b with ``pred_field``), with K1c's
+    executed-plane map always on: it costs one add per plane here."""
     K, Na, O = t1b.shape
     dev = t1b.device
     (ww, wl, gamma, ia, near, far, show_seg, show_pred, bml, bmh, acl, ach,
@@ -70,7 +93,7 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     lr, lg, lb = torch.zeros_like(cg), torch.zeros_like(cg), torch.zeros_like(cg)
     T = torch.ones_like(cg)
     started = torch.zeros_like(cg)
-    n_active = torch.zeros((), dtype=torch.int64, device=dev)
+    planes = torch.zeros((O, O), dtype=torch.int32, device=dev)
     n_labeled = torch.zeros(2, dtype=torch.int64, device=dev)
 
     def rows(src, m, a):
@@ -107,7 +130,7 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
             act = act & (lam >= 0.0)
         g = q_m - r_map
         act = act & sw.entry_active(g, r_map)
-        n_active += act.sum()
+        planes += act
         actf = act.to(_F32)
         scale, started = sw.entry_correction(g, actf, started)
         dt_e = dt_map * scale
@@ -140,15 +163,17 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
             lr, lg, lb = lr + r, lg + g_, lb + b
             n_labeled[src] += n
     C = torch.stack([cg + lr, cg + lg, cg + lb], dim=-1)
-    return C, T, n_active, n_labeled
+    return PlainK1(C, T, planes, n_labeled)
 
 
 def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
                      dt_map, r_map, use_gamma: bool, use_clip: bool,
                      pred_field=None, field_stride: int = 1,
-                     field_kstride: int = 1
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 over the stage-1 rows -> (C (O,O,3), T (O,O)).
+                     field_kstride: int = 1, count_planes: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
+    """K1 over the stage-1 rows -> (C (O,O,3), T (O,O)), and with
+    ``count_planes`` (K1c) -> (C, T, planes (O,O) int32), each pixel's
+    count of planes that composited. C and T do not depend on it.
 
     t1b (K, Na, O) bf16; seg_rows / pred_rows (K, Na, O) uint8 labels in
     [0, 8) or None; pp (K, 7) and scalars (16,) float32 (layouts at the
@@ -186,11 +211,10 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if dev.type == "cpu":
-        C, T, _, _ = composite_planes_plain(t1b, seg_rows, pred_rows, pp,
-                                         scalars, lut, vmag, dt_map, r_map,
-                                         use_gamma, use_clip, pred_field, S,
-                                         Kf)
-        return C, T
+        out = composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars,
+                                     lut, vmag, dt_map, r_map, use_gamma,
+                                     use_clip, pred_field, S, Kf)
+        return out[:3] if count_planes else out[:2]
     if dev.type != "cuda":
         raise RuntimeError(f"no compositor for device {dev}")
     for name, t, _, _ in checks:
@@ -202,29 +226,36 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     from mri_raytracer_tpu_torch.ops import kernels
 
     fn = kernels.function("composite", "mrt_composite", [
-        ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lut8 = sw._label_table(lut).to(_F32).contiguous()
     C = torch.empty((O, O, 3), dtype=_F32, device=dev)
     T = torch.empty((O, O), dtype=_F32, device=dev)
+    planes = torch.empty((O, O), dtype=torch.int32, device=dev) \
+        if count_planes else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(t1b.data_ptr(), ptr(seg_rows), ptr(pred_rows),
                  ptr(pred_field), pp.data_ptr(), scalars.data_ptr(),
                  lut8.data_ptr(), vmag.data_ptr(), dt_map.data_ptr(),
-                 r_map.data_ptr(), C.data_ptr(), T.data_ptr(), K, Na, O, S,
-                 Kf, Op, int(use_gamma), int(use_clip), stream)
+                 r_map.data_ptr(), C.data_ptr(), T.data_ptr(), ptr(planes),
+                 K, Na, O, S, Kf, Op, int(use_gamma), int(use_clip), stream)
     if err != 0:
         raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
     composite_planes.launches += 1
     if pred_field is not None:
         composite_planes.field_launches += 1
+    if count_planes:
+        composite_planes.count_launches += 1
+        return C, T, planes
     return C, T
 
 
-# Launches of the kernel, and of those the ones with a field (K1b).
+# Launches of the kernel, and of those the ones with a field (K1b) and the
+# ones with the executed-plane counter (K1c).
 composite_planes.launches = 0
 composite_planes.field_launches = 0
+composite_planes.count_launches = 0
 
 
 def nearest_rows(vol_s: torch.Tensor, zi, off_b, sc_b, out_res: int,
@@ -318,16 +349,18 @@ def sweep_composite_fused(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                           use_gamma: bool = True, use_clip: bool = True,
                           z_offset=None, nk_global: Optional[int] = None,
                           pred_field: Optional[torch.Tensor] = None,
-                          field_stride: int = 1, field_kstride: int = 1
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          field_stride: int = 1, field_kstride: int = 1,
+                          count_planes: bool = False
+                          ) -> Tuple[torch.Tensor, ...]:
     """Fused counterpart of ``shearwarp.sweep_composite`` (supersample 1):
     stage 1 then K1. Returns intermediate (O,O,3) emission and (O,O)
-    transmittance. Slab mode as in ``sweep_composite``. ``pred_field``:
-    integer INR labels (ceil((Nk+1) / field_kstride), O / field_stride,
-    O / field_stride) in sweep order, composited by K1b; exclusive with
-    ``pred_s``."""
+    transmittance, and with ``count_planes`` K1c's (O,O) int32
+    executed-plane map. Slab mode as in ``sweep_composite``.
+    ``pred_field``: integer INR labels (ceil((Nk+1) / field_kstride),
+    O / field_stride, O / field_stride) in sweep order, composited by K1b;
+    exclusive with ``pred_s``."""
     k1 = stage1(mixed_s, seg_s, pred_s, geom, p, axis, out_res, z_offset,
                 nk_global)
     field = None if pred_field is None else field_labels(pred_field)
     return composite_planes(*k1, use_gamma, use_clip, field, field_stride,
-                            field_kstride)
+                            field_kstride, count_planes)

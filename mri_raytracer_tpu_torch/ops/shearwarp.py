@@ -571,7 +571,8 @@ def dominant_axis(basis) -> int:
 def render_prepared(mixed_s, seg_s, pred_s, basis: CameraBasis, p, axis,
                     width, height, out_res, supersample=1, use_gamma=True,
                     use_clip=True, composite="scan", z_offset=None,
-                    nk_global=None, ab_offset=None, inplane_global=None):
+                    nk_global=None, ab_offset=None, inplane_global=None,
+                    echo=None):
     """Per-frame renderer over cached prepared volumes (the interactive
     path). ``composite``: 'scan' (``sweep_composite``) or 'fused' (stage 1
     + kernel K1, ``ops.composite``; supersample 1 only).
@@ -581,7 +582,14 @@ def render_prepared(mixed_s, seg_s, pred_s, basis: CameraBasis, p, axis,
     ``ab_offset``/``inplane_global``: they hold rows [a_off, a_off + Na) x
     cols [b_off, b_off + Nb) of an (na_g, nb_g) in-plane extent, and the
     intermediate image covers only the content box's projection.
+    ``echo``: the fused compositor's instrumentation channel; 'planes'
+    returns K1c's (out_res, out_res) int32 executed-plane map INSTEAD of an
+    image (no warp), for ``utils.arith``. Fused compositor only.
     """
+    if echo is not None and (composite != "fused" or echo != "planes"):
+        raise ValueError("echo instrumentation requires the fused "
+                         f"compositor and echo='planes' (got composite="
+                         f"{composite!r}, echo={echo!r})")
     geom = content_geometry(basis, p, tuple(mixed_s.shape), axis, out_res,
                             width, height, z_offset, nk_global, ab_offset,
                             inplane_global)
@@ -592,9 +600,13 @@ def render_prepared(mixed_s, seg_s, pred_s, basis: CameraBasis, p, axis,
         from mri_raytracer_tpu_torch.ops.composite import \
             sweep_composite_fused
 
-        C, _ = sweep_composite_fused(mixed_s, seg_s, pred_s, geom, p, axis,
-                                     out_res, use_gamma, use_clip,
-                                     z_offset=z_offset, nk_global=nk_global)
+        out = sweep_composite_fused(mixed_s, seg_s, pred_s, geom, p, axis,
+                                    out_res, use_gamma, use_clip,
+                                    z_offset=z_offset, nk_global=nk_global,
+                                    count_planes=echo is not None)
+        if echo is not None:
+            return out[2]  # the count map, not an image: no warp
+        C = out[0]
     elif composite == "scan":
         C, _ = sweep_composite(mixed_s, seg_s, pred_s, geom, p, axis, out_res,
                                supersample, use_gamma, use_clip,

@@ -16,6 +16,7 @@ Backends:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -25,8 +26,11 @@ from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.ops import raymarch, shearwarp
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, OrbitalCamera
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
+from mri_raytracer_tpu_torch.utils.profiling import sync
 
 _BACKENDS = ("auto", "sweep", "sweep_cuda", "oracle")
+# (theta, phi) of the warm-up frames: one per sweep axis.
+_WARMUP_POSES = ((0.0, math.pi / 2), (math.pi / 2, math.pi / 2), (0.0, 0.05))
 
 
 class SweepFrame(NamedTuple):
@@ -214,14 +218,27 @@ class BratsRenderer:
             inplane_global=(na_g, nb_g) if inplane_cropped else None,
             extra_s=extra_s)
 
-    def _render_sweep(self, basis: CameraBasis, params) -> torch.Tensor:
+    def _render_sweep(self, basis: CameraBasis, params, echo=None
+                      ) -> torch.Tensor:
         frame = self.sweep_frame(basis, params)._asdict()
         del frame["extra_s"]
         return shearwarp.render_prepared(
             width=self.width, height=self.height,
             supersample=self.supersample,
             composite="fused" if self.backend == "sweep_cuda" else "scan",
-            **frame)
+            echo=echo, **frame)
+
+    def warmup(self, params: BratsRenderParams) -> None:
+        """One frame per sweep axis, at the three poses of the JAX
+        package's ``shearwarp.warmup_window_variants`` (face-x, face-y,
+        top; ``shearwarp.py:1042-1046``): builds the kernels and fills the
+        prepared-volume cache of every axis before the first interactive
+        frame, so an orbit never stalls when the dominant axis flips. The
+        port's warp has no window ladder to walk."""
+        for theta, phi in _WARMUP_POSES:
+            cam = OrbitalCamera(radius=2.0, theta=theta, phi=phi)
+            out = self.render(cam.basis(), params)
+        sync(out)
 
     def set_prediction(self, pred) -> None:
         """Upload an INR prediction volume (reference 'Load INR & Predict')."""
@@ -230,17 +247,35 @@ class BratsRenderer:
         self._prep_cache.clear()  # prepared volumes embed pred
         self._refresh_bbox()  # pred content may extend the crop box
 
-    def render(self, basis: CameraBasis, params: BratsRenderParams
-               ) -> torch.Tensor:
+    def render(self, basis: CameraBasis, params: BratsRenderParams,
+               _echo=None) -> torch.Tensor:
         """(H, W, 3) float32 frame on the renderer's device. ``basis`` on
         the CPU (``OrbitalCamera.basis()``) keeps the frame free of device
-        syncs: the sweep axis is read from it on the host."""
+        syncs: the sweep axis is read from it on the host. ``_echo``:
+        internal, the fused compositor's instrumentation channel (returns
+        its payload instead of an image; see ``executed_planes``)."""
         if self.backend == "oracle":
+            if _echo is not None:
+                raise ValueError("echo instrumentation requires the fused "
+                                 "compositor")
             return raymarch.render_brats(self.mods, self.seg, self.pred,
                                          basis, params, self.width,
                                          self.height, self.max_steps,
                                          device=self.device)
-        return self._render_sweep(basis, params)
+        return self._render_sweep(basis, params, _echo)
+
+    def executed_planes(self, basis: CameraBasis,
+                        params: BratsRenderParams) -> np.ndarray:
+        """Exact per-pixel executed-plane counts of this frame, (out_res,
+        out_res) int32, from K1c (the fused compositor with its counter):
+        the static plane budget (``frame_stats['planes']``) is an upper
+        bound, since the content box, the gates and the T <= 0.01 exit skip
+        planes, and this counts what ran. ``utils.arith.frame_flops`` uses
+        it. Backend 'sweep_cuda' only (on CPU tensors its plain version)."""
+        if self.backend != "sweep_cuda":
+            raise RuntimeError("executed_planes requires the fused backend "
+                               f"'sweep_cuda' (current: {self.backend})")
+        return self.render(basis, params, _echo="planes").cpu().numpy()
 
     def render_numpy(self, basis: CameraBasis, params: BratsRenderParams
                      ) -> np.ndarray:

@@ -55,6 +55,13 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.render.params",
     "mri_raytracer_tpu_torch.render.camera",
     "mri_raytracer_tpu_torch.render.brats",
+    "mri_raytracer_tpu_torch.render.presets",
+    "mri_raytracer_tpu_torch.data.nifti",
+    "mri_raytracer_tpu_torch.io.png",
+    "mri_raytracer_tpu_torch.utils.arith",
+    "mri_raytracer_tpu_torch.utils.profiling",
+    "mri_raytracer_tpu_torch.apps.brats_app",
+    "mri_raytracer_tpu_torch.apps.serve",
 ]
 
 

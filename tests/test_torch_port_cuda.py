@@ -82,10 +82,53 @@ def test_k1_kernel_matches_plain(scene, theta, phi, pred, gamma, near, crop):
     Ck, Tk = composite.composite_planes(*k1, *flags)
     torch.cuda.synchronize()
     assert composite.composite_planes.launches == before + 1
-    Cp, Tp, n_active, _ = composite.composite_planes_plain(*k1, *flags)
-    assert int(n_active) > 0
+    Cp, Tp, planes, _ = composite.composite_planes_plain(*k1, *flags)
+    assert int(planes.sum()) > 0
     assert float((Ck - Cp).abs().max()) <= 1e-3
     assert float((Tk - Tp).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,phi,gamma,near,crop", [
+    (0.7, 1.1, 1.0, 0.0, False), (1.9, 0.4, 1.3, 0.5, True)])
+def test_k1c_counter_matches_plain(scene, theta, phi, gamma, near, crop):
+    """K1c: the kernel's executed-plane map equals the plain version's,
+    and C and T with the counter on are bit-equal to those with it off."""
+    dev = _card()
+    disp, seg = scene
+    p = rp.default_render_params(SHAPE, show_seg=True, gamma=gamma,
+                                 near=near, device=dev)
+    basis = _basis(p, theta, phi, dev)
+    axis = sw.dominant_axis(basis)
+    mixed, seg_s, _ = sw.prepare_sweep_volumes(
+        torch.as_tensor(disp, device=dev), torch.as_tensor(seg, device=dev),
+        None, p, axis)
+    kw = {}
+    if crop:
+        nk, na, nb = mixed.shape
+        mixed = mixed[3:nk - 5, 4:na - 2, 2:nb - 6].contiguous()
+        seg_s = seg_s[3:nk - 5, 4:na - 2, 2:nb - 6].contiguous()
+        kw = dict(z_offset=3, nk_global=nk, ab_offset=(4, 2),
+                  inplane_global=(na, nb))
+    geom = sw.content_geometry(basis, p, tuple(mixed.shape), axis, O, 96, 80,
+                               **kw)
+    k1 = composite.stage1(mixed, seg_s, None, geom, p, axis, O,
+                          kw.get("z_offset"), kw.get("nk_global"))
+    flags = sw.static_flags(p)
+    before = (composite.composite_planes.launches,
+              composite.composite_planes.count_launches)
+    C0, T0 = composite.composite_planes(*k1, *flags)
+    C1, T1, planes = composite.composite_planes(*k1, *flags,
+                                                count_planes=True)
+    torch.cuda.synchronize()
+    assert (composite.composite_planes.launches,
+            composite.composite_planes.count_launches) == \
+        (before[0] + 2, before[1] + 1)
+    assert planes.dtype == torch.int32 and planes.shape == (O, O)
+    assert torch.equal(C0, C1) and torch.equal(T0, T1)
+    ref = composite.composite_planes_plain(*k1, *flags).planes
+    assert int(ref.sum()) > 0
+    assert torch.equal(planes, ref)
 
 
 @pytest.mark.cuda
@@ -125,9 +168,9 @@ def test_k1b_kernel_matches_plain(scene, stride, kstride, with_seg, crop):
     Ck, Tk = composite.composite_planes(*k1, *flags, **fkw)
     torch.cuda.synchronize()
     assert composite.composite_planes.field_launches == before + 1
-    Cp, Tp, n_active, n_labeled = composite.composite_planes_plain(
+    Cp, Tp, planes, n_labeled = composite.composite_planes_plain(
         *k1, *flags, **fkw)
-    assert int(n_active) > 0 and int(n_labeled[1]) > 0
+    assert int(planes.sum()) > 0 and int(n_labeled[1]) > 0
     assert float((Ck - Cp).abs().max()) <= 1e-3
     assert float((Tk - Tp).abs().max()) <= 1e-3
 

@@ -232,12 +232,13 @@ def test_k1b_plain_counts_and_checks():
     r = torch.full((8, 8), 3e38)
     field = torch.tensor([[0, 1, 9, 2]] * Op, dtype=torch.uint8)[None] \
         .repeat(2, 1, 1)  # (ceil(3 / 2), 4, 4)
-    C, T, n_act, n_lab = composite.composite_planes_plain(
+    C, T, planes, n_lab = composite.composite_planes_plain(
         t1b, None, None, pp, sc, lut, m, m, r, False, False,
         pred_field=field, field_stride=2, field_kstride=2)
     # Rows 0..3 x 8 columns composite on planes 0 and 1; per plane half the
     # columns read label 1 or 2 (0 and 9 are transparent).
-    assert int(n_act) == 2 * 4 * 8 and n_lab.tolist() == [0, 2 * 4 * 4]
+    assert int(planes.sum()) == 2 * 4 * 8 and n_lab.tolist() == [0, 2 * 4 * 4]
+    assert bool((planes[:4] == 2).all()) and int(planes[4:].abs().sum()) == 0
     assert float(C[0, 2:4].sum()) > 0 and float(C[0, 0:2].sum()) == 0
     assert float(C[4:].abs().sum()) == 0  # rows past the a-mask: inactive
     args = (t1b, None, None, pp, sc, lut, m, m, r, False, False)
