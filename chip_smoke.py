@@ -19,6 +19,8 @@ and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
               -Xptxas -v says about registers, shared memory and spills
+              (a spill in composite.cu fails the run); K1's tile, window,
+              shared memory and blocks per SM of each variant
   3. kernels  K1 and K2 at the main path's shapes, each held against its
               plain PyTorch version on the same inputs (tolerance TOL)
   4. main     a warm-up, then BATCHES x ITERS orbit frames; both launch
@@ -27,9 +29,10 @@ and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
   5. quality  PSNR against the port's oracle at the six poses of bench.py,
               each >= 40 dB
   6. timing   device times (torch.profiler, from a cold L2) and
-              back-to-back CUDA-event times of K1,
-              K2, stage 1, the plain versions and the library yardstick,
-              beside each kernel's bound
+              back-to-back CUDA-event times of K1 (at the start pose and,
+              held against its plain version, at the heaviest accounting
+              pose), K2, stage 1, the plain versions and the library
+              yardstick, beside each kernel's bound
   7. profile  torch.profiler over PROFILE_FRAMES orbit frames: device
               kernels per frame, device busy time per frame by kernel,
               and the device's idle share of the unprofiled frame time
@@ -63,8 +66,10 @@ without the port package. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
+import re
 import struct
 import sys
 import tempfile
@@ -82,6 +87,9 @@ WARMUP, ITERS, BATCHES = 15, 15, 3
 PROFILE_FRAMES = 5
 NEURAL_WARMUP = 5
 ACCT_POSES = 5
+# The accounting pose (frames into the timed orbit) with the most executed
+# (pixel, plane) pairs in PR 3: K1 is timed there beside the start pose.
+HEAVY_K = 23
 VIEWER_FRAMES = 5
 SERVER_FRAMES = 4
 # Warm-up frames of BratsRenderer.warmup: one per sweep axis.
@@ -202,6 +210,34 @@ def bound(peaks, nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_info(torch, composite, kernels) -> None:
+    """K1's tile, window, stages and shared memory, and for its four
+    instantiations (counter off / on, gamma off / on) the blocks per SM the
+    CUDA runtime grants, registers and local bytes (stack frame and spills;
+    ``mrt_composite_info``). Fails if the Python mirror's constants differ
+    from the kernel's."""
+    info = kernels.function("composite", "mrt_composite_info",
+                            [ctypes.c_int, ctypes.c_void_p])
+    for K in (225, 257):
+        out = torch.zeros(19, dtype=torch.int32)
+        err = info(K, out.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"mrt_composite_info: cudaError {err}")
+        ti, tj, threads, win, stages, smem, smem_max, *var = out.tolist()
+        log("build", f"K1 at K={K}: tile {ti}x{tj}, {threads} threads, "
+            f"a-row window {win} rows, {stages} stages, {smem} bytes of "
+            f"shared memory (at most {smem_max}); " + "; ".join(
+                f"{name}: {var[3 * v]} blocks/SM, {var[3 * v + 1]} "
+                f"registers, {var[3 * v + 2]} local bytes" for v, name in
+                enumerate(("K1", "K1 gamma", "K1c", "K1c gamma"))))
+        mirror = (composite.TILE_I, composite.TILE_J, composite.WIN_ROWS,
+                  composite._SMEM_RING + K * composite._SMEM_PLANE,
+                  composite._SMEM_MAX)
+        if (ti, tj, win, smem, smem_max) != mirror:
+            raise RuntimeError(f"ops/composite.py's K1 constants {mirror} "
+                               "differ from the kernel's")
+
+
 def run(torch) -> int:
     import torch.nn.functional as F
 
@@ -240,11 +276,18 @@ def run(torch) -> int:
     log("build", f"nvcc built {sorted(built)} in "
         f"{time.perf_counter() - t0:.1f} s (all sources at once; "
         + ", ".join(f"{k} {v[0]:.1f} s" for k, v in built.items()) + ")")
+    spilled = []
     for src in kernels.SOURCES:
         text = kernels.library_path(src).with_suffix(".log").read_text()
         for line in text.splitlines():
             if "ptxas info" in line or "spill" in line:
                 log("build", f"{src}: {line.strip()}")
+            if src == "composite" and any(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                spilled.append(line.strip())
+    if spilled:
+        raise RuntimeError(f"ptxas spills in composite.cu: {spilled}")
+    k1_info(torch, composite, kernels)
 
     # ----------------------------------------------------------- scene
     t0 = time.perf_counter()
@@ -388,14 +431,52 @@ def run(torch) -> int:
         log("timing", f"{name}: device {t[name][0]:.4f} ms (cold L2), CUDA "
             f"events {t[name][1]:.4f} ms back to back (mean of {n} calls)")
 
-    overlays = sum(r is not None for r in (k1.seg_rows, k1.pred_rows))
-    k1_bytes = (k1.t1b.numel() * 2 + overlays * k1.t1b.numel()
-                + k1.pp.numel() * 4 + (16 + 32) * 4 + 3 * O * O * 4
-                + 4 * O * O * 4)
-    # n_active is the sum of the plain version's executed-plane map.
-    k1_ops = (n_active * (K1_OPS_PLANE + (K1_OPS_NEAREST if overlays else 0))
-              + n_labeled * K1_OPS_LABEL)
+    def k1_cost(k1, n_active, n_labeled):
+        """K1a's bytes and fp32 operations on these inputs; n_active is the
+        sum of the plain version's executed-plane map."""
+        O = k1.t1b.shape[2]
+        overlays = sum(r is not None for r in (k1.seg_rows, k1.pred_rows))
+        nbytes = (k1.t1b.numel() * 2 + overlays * k1.t1b.numel()
+                  + k1.pp.numel() * 4 + (16 + 32) * 4 + 3 * O * O * 4
+                  + 4 * O * O * 4)
+        ops = (n_active * (K1_OPS_PLANE + (K1_OPS_NEAREST if overlays else 0))
+               + n_labeled * K1_OPS_LABEL)
+        return nbytes, ops
+
+    k1_bytes, k1_ops = k1_cost(k1, n_active, n_labeled)
     k1_bound, k1_by = bound(peaks, k1_bytes, k1_ops, peaks.fp32)
+    # K1 at the heaviest pose of phase 9's accounting (HEAVY_K frames into
+    # the timed orbit, axis 2 in PR 3), held against its plain version and
+    # timed beside the start pose.
+    bh = OrbitalCamera(radius=radius, theta=0.6 + 0.03 * (WARMUP + HEAVY_K),
+                       phi=1.2 + 0.01 * HEAVY_K).basis()
+    frh = renderer.sweep_frame(bh, p)
+    geomh = shearwarp.content_geometry(
+        frh.basis, frh.p, tuple(frh.mixed_s.shape), frh.axis, frh.out_res,
+        WIDTH, HEIGHT, frh.z_offset, frh.nk_global, frh.ab_offset,
+        frh.inplane_global)
+    k1h = composite.stage1(frh.mixed_s, frh.seg_s, frh.pred_s, geomh, frh.p,
+                           frh.axis, frh.out_res, frh.z_offset, frh.nk_global)
+    flagsh = (frh.use_gamma, frh.use_clip)
+    Ch, Th = composite.composite_planes(*k1h, *flagsh)
+    torch.cuda.synchronize()
+    plainh = composite.composite_planes_plain(*k1h, *flagsh)
+    err_h = max(float((Ch - plainh.C).abs().max()),
+                float((Th - plainh.T).abs().max()))
+    if not err_h <= TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at the "
+                           f"heavy pose ({err_h:.3e})")
+    k1h_fn = lambda: composite.composite_planes(*k1h, *flagsh)
+    t["K1 heavy"] = (device_ms(torch, k1h_fn, 20), cuda_ms(torch, k1h_fn, 20))
+    k1h_bytes, k1h_ops = k1_cost(k1h, int(plainh.n_active),
+                                 int(plainh.n_labeled.sum()))
+    k1h_bound, k1h_by = bound(peaks, k1h_bytes, k1h_ops, peaks.fp32)
+    log("timing", f"K1 at the heavy pose k={HEAVY_K} (axis {frh.axis}, "
+        f"K={k1h.t1b.shape[0]}, Na={k1h.t1b.shape[1]}, O={frh.out_res}, "
+        f"{int(plainh.n_active)} active pairs): max|kernel - plain| "
+        f"{err_h:.3e}; device {t['K1 heavy'][0]:.4f} ms (cold L2), CUDA "
+        f"events {t['K1 heavy'][1]:.4f} ms, bound {k1h_bound:.4f} ms by "
+        f"{k1h_by}, on {card}")
     k2_bytes = O * O * 3 * 4 + 24 * 4 + HEIGHT * WIDTH * 3 * 4
     k2_bound, k2_by = bound(peaks, k2_bytes, HEIGHT * WIDTH * K2_OPS_PIXEL,
                             peaks.fp32)

@@ -26,13 +26,16 @@ tiling; the Pallas kernel's per-tile count bounds it from above.
 ``utils.arith.frame_flops`` turns it into the frame's exact stage-2 FLOPs.
 
 K1 (``csrc/composite.cu``; replaces ``pallas_composite.py::_make_kernel``,
-launched at ``pallas_composite.py:575``): one thread per intermediate pixel
-loops over all K = Nk+1 planes with the running colour and transmittance in
-registers, finishing each plane's resample as a 2-tap lerp along a, then
-the transfer function, masks, entry correction, label LUT overlays, and the
-T <= 0.01 early exit. ``composite_planes`` launches it for CUDA tensors;
-``composite_planes_plain`` is the same arithmetic in PyTorch for CPU
-tensors (and the reference ``chip_smoke.py`` holds the kernel against).
+launched at ``pallas_composite.py:575``): a block composites a 16 x 64
+tile of the intermediate image over the planes that can touch it (the
+Pallas kernel's per-tile culling, mirrored by ``tile_planes_plain``), with
+the tile's a-rows of each plane staged in shared memory ahead of use, and
+leaves once every ray of the tile has T <= 0.01. Per (pixel, plane) it
+finishes the resample as a 2-tap lerp along a, then the transfer function,
+masks, entry correction and label LUT overlays, with the running colour
+and transmittance in registers. ``composite_planes`` launches it for CUDA
+tensors; ``composite_planes_plain`` is the same arithmetic in PyTorch for
+CPU tensors (and the reference ``chip_smoke.py`` holds the kernel against).
 
 With supersample == 1 the planes sit at integer slice indices, so the
 z-lerp is a no-op. The z = Nk edge plane reads slice Nk-1 exactly, as the
@@ -56,6 +59,14 @@ _F32 = torch.float32
 # far, show_seg, show_pred, mask_b_lo, mask_b_hi, a_clamp_lo, a_clamp_hi,
 # a_clamp_hi_n, mask_a_lo, mask_a_hi, unused.
 
+# csrc/composite.cu's tile (rows, columns) and the a-rows a stage of its
+# shared-memory ring holds, mirrored for ``tile_planes_plain``; chip_smoke.py
+# holds them against the kernel's own (``mrt_composite_info``).
+TILE_I, TILE_J, WIN_ROWS = 16, 64, 18
+# Its dynamic shared memory: the row ring and header, then per plane its
+# table row, window and run-list slot; at most 227 KB a block on sm_90.
+_SMEM_RING, _SMEM_PLANE, _SMEM_MAX = 22528 + 144, 44, 232448
+
 
 class PlainK1(NamedTuple):
     """What the plain version of K1 returns."""
@@ -77,9 +88,11 @@ class PlainK1(NamedTuple):
 def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
                            dt_map, r_map, use_gamma: bool, use_clip: bool,
                            pred_field=None, field_stride: int = 1,
-                           field_kstride: int = 1) -> PlainK1:
+                           field_kstride: int = 1, on_plane=None) -> PlainK1:
     """Plain PyTorch version of K1 (K1b with ``pred_field``), with K1c's
-    executed-plane map always on: it costs one add per plane here."""
+    executed-plane map always on: it costs one add per plane here.
+    ``on_plane(m, act)``, when given, sees each plane's (O, O) bool mask of
+    the pixels that composite it (the tests of the tile culling)."""
     K, Na, O = t1b.shape
     dev = t1b.device
     (ww, wl, gamma, ia, near, far, show_seg, show_pred, bml, bmh, acl, ach,
@@ -130,6 +143,8 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
             act = act & (lam >= 0.0)
         g = q_m - r_map
         act = act & sw.entry_active(g, r_map)
+        if on_plane is not None:
+            on_plane(m, act)
         planes += act
         actf = act.to(_F32)
         scale, started = sw.entry_correction(g, actf, started)
@@ -220,9 +235,10 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     for name, t, _, _ in checks:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if K * 7 * 4 > 48 * 1024:
-        raise ValueError(f"plane table of {K} planes exceeds 48 KB of "
-                         "shared memory")
+    if _SMEM_RING + K * _SMEM_PLANE > _SMEM_MAX:
+        raise ValueError(f"{K} planes need {_SMEM_RING + K * _SMEM_PLANE} "
+                         f"bytes of shared memory, over the {_SMEM_MAX} a "
+                         "block may have")
     from mri_raytracer_tpu_torch.ops import kernels
 
     fn = kernels.function("composite", "mrt_composite", [
@@ -256,6 +272,53 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
 composite_planes.launches = 0
 composite_planes.field_launches = 0
 composite_planes.count_launches = 0
+
+
+class TilePlanes(NamedTuple):
+    """What ``tile_planes_plain`` returns, for tiles (ti, tj) and planes m."""
+
+    run: torch.Tensor  # (nI, nJ, K) bool: the tile may composite plane m
+    # (nI, K) int64: the a-rows the tile's taps and nearest label rows can
+    # read, clipped to [0, Na); staged when a_hi - a_lo < WIN_ROWS.
+    a_lo: torch.Tensor
+    a_hi: torch.Tensor
+
+
+def tile_planes_plain(pp, scalars, Na: int, O: int, use_clip: bool,
+                      has_rows: bool) -> TilePlanes:
+    """Plain PyTorch mirror of K1's per-tile plane culling and a-row windows
+    (``csrc/composite.cu``), for the tests: a tile of TILE_I x TILE_J
+    pixels (clipped to the image) runs plane m when its first and last
+    rows' pos_a straddle the a-mask, its first and last columns' pos_b the
+    b-mask, own > 0, and lam >= 0 without a clip (``pallas_composite.py:
+    205-215``). Positions round as the plain version's do, so a plane a
+    tile culls holds none of its pixels that composite."""
+    _, _, _, _, _, _, _, _, bml, bmh, acl, ach, acn, aml, amh, _ = \
+        scalars.unbind()
+    off_a, sc_a, off_b, sc_b, lam, own, _ = pp.unbind(-1)  # (K,)
+
+    def ends(tile):
+        first = torch.arange(0, O, tile, device=pp.device)
+        last = torch.clamp(first + tile, max=O) - 1
+        return first.to(_F32)[:, None], last.to(_F32)[:, None]
+
+    (i0, i1), (j0, j1) = ends(TILE_I), ends(TILE_J)
+    pa0, pa1 = off_a + i0 * sc_a, off_a + i1 * sc_a  # (nI, K)
+    pb0, pb1 = off_b + j0 * sc_b, off_b + j1 * sc_b  # (nJ, K)
+    a_min, a_max = torch.minimum(pa0, pa1), torch.maximum(pa0, pa1)
+    a_ok = (a_max >= aml) & (a_min <= amh)
+    b_ok = (torch.maximum(pb0, pb1) >= bml) & (torch.minimum(pb0, pb1) <= bmh)
+    plane_ok = own > 0.0
+    if not use_clip:
+        plane_ok = plane_ok & (lam >= 0.0)
+    run = a_ok[:, None, :] & b_ok[None, :, :] & plane_ok
+    lo = torch.floor(torch.clamp(a_min, acl, ach))
+    hi = torch.floor(torch.clamp(a_max, acl, ach)) + 1
+    if has_rows:
+        lo = torch.minimum(lo, torch.round(torch.clamp(a_min, acl, acn)))
+        hi = torch.maximum(hi, torch.round(torch.clamp(a_max, acl, acn)))
+    return TilePlanes(run, torch.clamp(lo.long(), min=0),
+                      torch.clamp(hi.long(), max=Na - 1))
 
 
 def nearest_rows(vol_s: torch.Tensor, zi, off_b, sc_b, out_res: int,

@@ -175,6 +175,96 @@ def test_k1b_kernel_matches_plain(scene, stride, kstride, with_seg, crop):
     assert float((Tk - Tp).abs().max()) <= 1e-3
 
 
+# Where a tiled K1 can break: id -> theta, phi, O, crop, near, far, gamma,
+# row overlays ('seg', or 'seg+pred' as in 'rebake'), field stride S and
+# plane stride Kf (S None: no field).
+TILED_CASES = {
+    # O not a multiple of the 16 x 64 tile; O % 16 != 0 also turns the row
+    # staging off (direct loads), and the field rows (Op = 60, 30) too.
+    "ragged120-field2": (2.1, 0.7, 120, False, 0.0, 0.0, 1.0, "seg", 2, 1),
+    "ragged120-field4-crop": (2.1, 0.7, 120, True, 0.0, 0.0, 1.0, "seg", 4,
+                              2),
+    "ragged120-rows": (4.2, 2.2, 120, False, 0.0, 0.0, 1.0, "seg", None, 1),
+    # Ragged columns with staged rows (O % 16 == 0), fields direct.
+    "ragged112-field2": (0.7, 1.1, 112, False, 0.0, 0.0, 1.0, "seg", 2, 1),
+    "ragged96-rebake-crop-clip": (2.1, 0.7, 96, True, 0.3, 3.2, 1.0,
+                                  "seg+pred", None, 1),
+    # |sc_a| > 1: windows over the stage's capacity, direct loads; the
+    # field (Op = 16) still staged.
+    "direct-O32": (0.7, 1.1, 32, False, 0.0, 0.0, 1.0, "seg", None, 1),
+    "direct-O32-field2": (0.7, 1.1, 32, False, 0.0, 0.0, 1.3, "seg", 2, 1),
+    # Both row overlays at once, the 'rebake' case.
+    "rebake": (4.2, 2.2, 128, False, 0.0, 0.0, 1.0, "seg+pred", None, 1),
+    # The clip path with near > 0 on a crop whose clamp bounds lie outside
+    # [0, N).
+    "clip-near-far-crop": (1.9, 0.4, 128, True, 0.5, 3.2, 1.3, "seg", None,
+                           1),
+    # An axis-2 pose (the heaviest orbit poses sweep along axis 2), with a
+    # staged field at stride 4.
+    "axis2-field4": (4.2, 2.2, 128, False, 0.0, 0.0, 1.3, "seg", 4, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILED_CASES))
+def test_k1_tiled_kernel_edges(scene, case):
+    """K1, K1b and K1c where the tiled kernel's culling, staging and
+    direct-load paths meet the edges of their shapes: C and T within 1e-3
+    of the plain version, the executed-plane map equal to the plain one,
+    and C and T bit-equal with the counter on and off."""
+    theta, phi, O_, crop, near, far, gamma, rows, S, Kf = TILED_CASES[case]
+    dev = _card()
+    disp, seg = scene
+    p = rp.default_render_params(SHAPE, show_seg=True,
+                                 show_pred=rows == "seg+pred" or bool(S),
+                                 gamma=gamma, near=near, far=far, device=dev)
+    basis = _basis(p, theta, phi, dev)
+    axis = sw.dominant_axis(basis)
+    pred = np.roll(seg, 3, axis=0) if rows == "seg+pred" else None
+    mixed, seg_s, pred_s = sw.prepare_sweep_volumes(
+        torch.as_tensor(disp, device=dev), torch.as_tensor(seg, device=dev),
+        None if pred is None else torch.as_tensor(pred, device=dev), p, axis)
+    kw = {}
+    if crop:
+        nk, na, nb = mixed.shape
+        cut = (slice(3, nk - 5), slice(4, na - 2), slice(2, nb - 6))
+        mixed, seg_s = mixed[cut].contiguous(), seg_s[cut].contiguous()
+        pred_s = None if pred_s is None else pred_s[cut].contiguous()
+        kw = dict(z_offset=3, nk_global=nk, ab_offset=(4, 2),
+                  inplane_global=(na, nb))
+    geom = sw.content_geometry(basis, p, tuple(mixed.shape), axis, O_, 96, 80,
+                               **kw)
+    k1 = composite.stage1(mixed, seg_s, pred_s, geom, p, axis, O_,
+                          kw.get("z_offset"), kw.get("nk_global"))
+    fkw = {}
+    if S:
+        K = k1.t1b.shape[0]
+        field = torch.randint(0, 10, (-(-K // Kf), O_ // S, O_ // S),
+                              generator=torch.Generator(dev).manual_seed(1),
+                              device=dev, dtype=torch.uint8)
+        fkw = dict(pred_field=field, field_stride=S, field_kstride=Kf)
+    flags = sw.static_flags(p)
+    before = (composite.composite_planes.launches,
+              composite.composite_planes.field_launches,
+              composite.composite_planes.count_launches)
+    C0, T0 = composite.composite_planes(*k1, *flags, **fkw)
+    C1, T1, planes = composite.composite_planes(*k1, *flags, **fkw,
+                                                count_planes=True)
+    torch.cuda.synchronize()
+    assert (composite.composite_planes.launches,
+            composite.composite_planes.field_launches,
+            composite.composite_planes.count_launches) == \
+        (before[0] + 2, before[1] + (2 if S else 0), before[2] + 1)
+    ref = composite.composite_planes_plain(*k1, *flags, **fkw)
+    assert int(ref.planes.sum()) > 0
+    if S:
+        assert int(ref.n_labeled[1]) > 0
+    assert float((C0 - ref.C).abs().max()) <= 1e-3
+    assert float((T0 - ref.T).abs().max()) <= 1e-3
+    assert torch.equal(C0, C1) and torch.equal(T0, T1)
+    assert torch.equal(planes, ref.planes)
+
+
 @pytest.mark.cuda
 def test_neural_fused_frame_matches_scan_and_counts():
     """NeuralBratsRenderer('auto') resolves to 'fused' on the card; its
