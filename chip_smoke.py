@@ -19,10 +19,14 @@ and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
               -Xptxas -v says about registers, shared memory and spills
-              (a spill in composite.cu fails the run); K1's tile, window,
-              shared memory and blocks per SM of each variant
+              (a spill in any kernel fails the run); K1's tile, window,
+              shared memory and blocks per SM of each variant; K2's tile,
+              blocks per SM and registers
   3. kernels  K1 and K2 at the main path's shapes, each held against its
-              plain PyTorch version on the same inputs (tolerance TOL)
+              plain PyTorch version on the same inputs (tolerance TOL); K2
+              also at the other five poses of bench.py, each frame equal to
+              the background wherever the plain version's pixel is off
+              the intermediate
   4. main     a warm-up, then BATCHES x ITERS orbit frames; both launch
               counters must equal the number of frames; fps on the host
               clock around torch.cuda.synchronize()
@@ -32,7 +36,8 @@ and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
               back-to-back CUDA-event times of K1 (at the start pose and,
               held against its plain version, at the heaviest accounting
               pose), K2, stage 1, the plain versions and the library
-              yardstick, beside each kernel's bound
+              yardstick, beside each kernel's bound (K2's counts the part
+              of the intermediate that valid pixels touch)
   7. profile  torch.profiler over PROFILE_FRAMES orbit frames: device
               kernels per frame, device busy time per frame by kernel,
               and the device's idle share of the unprofiled frame time
@@ -238,6 +243,23 @@ def k1_info(torch, composite, kernels) -> None:
                                "differ from the kernel's")
 
 
+def k2_info(torch, kernels) -> None:
+    """K2's tile, pixels a thread and threads, and for its wide and scalar
+    instantiations the blocks per SM, registers and local bytes
+    (``mrt_warp_info``)."""
+    info = kernels.function("warp", "mrt_warp_info", [ctypes.c_void_p])
+    out = torch.zeros(10, dtype=torch.int32)
+    err = info(out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"mrt_warp_info: cudaError {err}")
+    tw, th, pix, threads, *var = out.tolist()
+    log("build", f"K2: tile {tw}x{th}, {pix} pixels a thread, {threads} "
+        "threads; " + "; ".join(
+            f"{name}: {var[3 * v]} blocks/SM, {var[3 * v + 1]} registers, "
+            f"{var[3 * v + 2]} local bytes"
+            for v, name in enumerate(("wide stores", "scalar stores"))))
+
+
 def run(torch) -> int:
     import torch.nn.functional as F
 
@@ -282,12 +304,12 @@ def run(torch) -> int:
         for line in text.splitlines():
             if "ptxas info" in line or "spill" in line:
                 log("build", f"{src}: {line.strip()}")
-            if src == "composite" and any(
-                    int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-                spilled.append(line.strip())
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                spilled.append(f"{src}.cu: {line.strip()}")
     if spilled:
-        raise RuntimeError(f"ptxas spills in composite.cu: {spilled}")
+        raise RuntimeError(f"ptxas spills: {spilled}")
     k1_info(torch, composite, kernels)
+    k2_info(torch, kernels)
 
     # ----------------------------------------------------------- scene
     t0 = time.perf_counter()
@@ -322,6 +344,8 @@ def run(torch) -> int:
     torch.cuda.synchronize()
     img_p = warp.warp_screen_plain(C_p, s, fr.axis, WIDTH, HEIGHT)
     err_k2 = float((img_k - img_p).abs().max())
+    err_k2_poses = k2_poses(torch, renderer, p, radius, composite, shearwarp,
+                            warp, OrbitalCamera)
     n_active, n_labeled = int(plain.n_active), int(plain.n_labeled.sum())
     log("kernels", f"pose orbit: axis {fr.axis}, K={K} planes, Na={Na}, "
         f"O={O}, crop k={fr.z_offset} ab={fr.ab_offset}, active "
@@ -336,6 +360,7 @@ def run(torch) -> int:
             raise RuntimeError(f"kernel output {name} is not finite")
     if not (err_k1 <= TOL and err_k2 <= TOL):
         raise RuntimeError("a kernel disagrees with its plain version")
+    err_k2 = max(err_k2, err_k2_poses)
 
     # ------------------------------------------------------ 4. main path
     cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
@@ -477,7 +502,16 @@ def run(torch) -> int:
         f"{err_h:.3e}; device {t['K1 heavy'][0]:.4f} ms (cold L2), CUDA "
         f"events {t['K1 heavy'][1]:.4f} ms, bound {k1h_bound:.4f} ms by "
         f"{k1h_by}, on {card}")
-    k2_bytes = O * O * 3 * 4 + 24 * 4 + HEIGHT * WIDTH * 3 * 4
+    # K2 reads only the corners of valid pixels: the bound counts the
+    # intermediate's pixels that some valid pixel's 4 corners touch.
+    i_map, j_map, valid = warp.screen_maps(s, fr.axis, O, WIDTH, HEIGHT)
+    i0 = torch.clamp(torch.floor(i_map[valid]).long(), 0, O - 2)
+    j0 = torch.clamp(torch.floor(j_map[valid]).long(), 0, O - 2)
+    touched = torch.zeros((O + 1) * (O + 1), dtype=torch.bool, device=dev)
+    for d in (0, 1, O + 1, O + 2):
+        touched[i0 * (O + 1) + j0 + d] = True
+    n_touched = int(touched.sum())
+    k2_bytes = n_touched * 3 * 4 + 24 * 4 + HEIGHT * WIDTH * 3 * 4
     k2_bound, k2_by = bound(peaks, k2_bytes, HEIGHT * WIDTH * K2_OPS_PIXEL,
                             peaks.fp32)
     bmm_bound, bmm_by = bound(
@@ -485,8 +519,12 @@ def run(torch) -> int:
         2.0 * K * Na * Nb * O, peaks.bf16)
     log("timing", f"K1 device {t['K1'][0]:.4f} ms, bound {k1_bound:.4f} ms "
         f"by {k1_by} ({k1_bytes / 1e6:.1f} MB, {k1_ops / 1e9:.3f} Gop fp32)")
-    log("timing", f"K2 device {t['K2'][0]:.4f} ms, bound {k2_bound:.4f} ms "
-        f"by {k2_by} ({k2_bytes / 1e6:.1f} MB)")
+    log("timing", f"K2 device {t['K2'][0]:.4f} ms (cold L2), CUDA events "
+        f"{t['K2'][1]:.4f} ms back to back, bound {k2_bound:.4f} ms by "
+        f"{k2_by} ({k2_bytes / 1e6:.2f} MB: {n_touched} of {O * O} "
+        f"intermediate pixels touched, {int(valid.sum())} valid of "
+        f"{HEIGHT * WIDTH} screen pixels), grid_sample "
+        f"{t['grid_sample'][0]:.4f} ms, on {card}")
     log("timing", f"bf16 bmm device {t['bmm'][0]:.4f} ms, bound "
         f"{bmm_bound:.4f} ms by {bmm_by}")
     log("timing", f"frame at {fps:.2f} fps = {1e3 / fps:.3f} ms host; "
@@ -548,6 +586,41 @@ def run(torch) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def k2_poses(torch, renderer, p, radius: float, composite, shearwarp, warp,
+             OrbitalCamera) -> float:
+    """K2 against its plain version on K1's intermediate at every pose of
+    POSES (phase 3): max abs error <= TOL, and the background exactly
+    wherever the plain version's pixel is off the intermediate. Returns
+    the largest error."""
+    worst = 0.0
+    for name, th, ph in POSES:
+        fr = renderer.sweep_frame(
+            OrbitalCamera(radius=radius, theta=th, phi=ph).basis(), p)
+        geom = shearwarp.content_geometry(
+            fr.basis, fr.p, tuple(fr.mixed_s.shape), fr.axis, fr.out_res,
+            WIDTH, HEIGHT, fr.z_offset, fr.nk_global, fr.ab_offset,
+            fr.inplane_global)
+        k1 = composite.stage1(fr.mixed_s, fr.seg_s, fr.pred_s, geom, fr.p,
+                              fr.axis, fr.out_res, fr.z_offset, fr.nk_global)
+        C, _ = composite.composite_planes(*k1, fr.use_gamma, fr.use_clip)
+        s = shearwarp.warp_scalars(geom, fr.basis, fr.p.bg_color)
+        img = warp.warp_screen(C, s, fr.axis, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        ref = warp.warp_screen_plain(C, s, fr.axis, WIDTH, HEIGHT)
+        _, _, valid = warp.screen_maps(s, fr.axis, C.shape[0], WIDTH, HEIGHT)
+        err = float((img - ref).abs().max())
+        off_bg = bool((img[~valid] == s[21:24]).all())
+        log("kernels", f"K2 at {name} (theta {th:.3f}, phi {ph:.3f}; axis "
+            f"{fr.axis}, O={C.shape[0]}): max|kernel - plain| {err:.3e}, "
+            f"valid {float(valid.float().mean()):.4f} of the screen, pixels "
+            f"off the intermediate {'all' if off_bg else 'NOT all'} "
+            "background")
+        if not (err <= TOL and off_bg and bool(torch.isfinite(img).all())):
+            raise RuntimeError(f"K2 disagrees with its plain version at {name}")
+        worst = max(worst, err)
+    return worst
 
 
 def neural_phase(torch, raw, mods, seg, radius: float, card: str,

@@ -4,10 +4,13 @@ Replaces ``mri_raytracer_tpu/ops/pallas_warp.py::_make_warp_kernel``
 (launched by ``warp_pallas_exec``, ``pallas_warp.py:222``). The TPU kernel
 streamed a fixed source window per 32x32 tile and interpolated with hat
 matmuls, behind a host footprint ladder and a fit check with a gather
-fallback. On Hopper a gather is cheap, so ``csrc/warp.cu`` runs one thread
-per screen pixel that computes its own source position from the camera and
-the sweep scalars and reads the 4 bilinear corners — no window, no ladder,
-no fallback. It is bound by bytes: the intermediate read once and the frame
+fallback. On Hopper a gather is cheap, so ``csrc/warp.cu`` computes each
+pixel's source position from the camera and the sweep scalars and reads its
+4 bilinear corners — no window, no ladder, no fallback: 32 x 8 screen tiles
+on a persistent grid, a warp over an 8 x 4 patch with 2 pixels a thread
+down its column, their loads issued together, the warp's rows written as
+float4s through shared memory, and no loads for a pixel off the
+intermediate. It is bound by bytes: the intermediate read once and the frame
 written once.
 
 ``warp_screen`` runs the kernel for CUDA tensors and ``warp_screen_plain``
@@ -20,6 +23,8 @@ import ctypes
 
 import torch
 
+from mri_raytracer_tpu_torch.ops import kernels
+
 _EPS = 1e-6
 _ORDER = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
 _F32 = torch.float32
@@ -28,6 +33,9 @@ _F32 = torch.float32
 # a0, da, b0, db, then the background colour.
 N_SCALARS = 24
 _CAM, _WB, _E, _A0, _DA, _B0, _DB, _BG = 0, 13, 14, 17, 18, 19, 20, 21
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p)
 
 
 def _perm(v: torch.Tensor, axis: int) -> torch.Tensor:
@@ -120,20 +128,41 @@ def warp_screen(C: torch.Tensor, s: torch.Tensor, axis: int, width: int,
         raise RuntimeError(f"no warp for device {C.device}")
     if not (C.is_contiguous() and s.is_contiguous()):
         raise ValueError("C and s must be contiguous")
-    from mri_raytracer_tpu_torch.ops import kernels
+    index = C.device.index
+    if index == torch.cuda.current_device():
+        out = _launch(C, s, axis, width, height, index)
+    else:
+        with torch.cuda.device(index):
+            out = _launch(C, s, axis, width, height, index)
+    warp_screen.launches += 1
+    return out
 
-    fn = kernels.function("warp", "mrt_warp", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p])
-    out = torch.empty((height, width, 3), dtype=_F32, device=C.device)
-    with torch.cuda.device(C.device):
-        stream = torch.cuda.current_stream(C.device).cuda_stream
-        err = fn(C.data_ptr(), s.data_ptr(), out.data_ptr(), C.shape[0],
-                 height, width, axis, width / max(1.0, float(height)), stream)
+
+def current_stream_handle(index: int) -> int:
+    """The raw ``cudaStream_t`` of device ``index``'s current stream, as an
+    int. ``torch._C._cuda_getCurrentRawStream`` reads it without building
+    the Python Stream object of ``torch.cuda.current_stream()``, which costs
+    a third of the wrapper's host time (``tools/k2_ablation.py``; checked
+    on torch 2.11.0+cu128). It is a private call: where a torch build lacks
+    it, the public one is used, and ``tests/test_torch_port_cuda.py`` holds
+    the two equal on the card."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def _launch(C, s, axis, width, height, index):
+    # The frame call sets K2's pace once the kernel is short, so the host
+    # work is kept to the least: the entry is bound once, and new_empty
+    # takes dtype and device from C.
+    fn = kernels.function("warp", "mrt_warp", _ARGTYPES)
+    out = C.new_empty((height, width, 3))
+    err = fn(C.data_ptr(), s.data_ptr(), out.data_ptr(), C.shape[0], height,
+             width, axis, width / max(1.0, float(height)),
+             current_stream_handle(index))
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: cudaError {err}")
-    warp_screen.launches += 1
     return out
 
 

@@ -304,25 +304,70 @@ def test_neural_fused_frame_matches_scan_and_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("theta,phi", [(0.0, 1.5), (1.6, 1.4), (0.3, 0.1),
-                                       (3.9, 2.6)])
-def test_k2_kernel_matches_plain(theta, phi):
+@pytest.mark.parametrize("theta,phi,width,height,o_res,radius,fov,c_offset", [
+    (0.0, 1.5, 96, 80, O, 1.0, 55.0, 0),
+    (1.6, 1.4, 96, 80, O, 1.0, 55.0, 0),
+    (0.3, 0.1, 96, 80, O, 1.0, 55.0, 0),
+    (3.9, 2.6, 96, 80, O, 1.0, 55.0, 0),
+    (0.7, 1.1, 97, 61, O, 1.0, 55.0, 0),
+    (1.2, 0.9, 100, 70, O, 1.0, 55.0, 0),
+    (0.85, 0.85, 96, 80, 256, 1.0, 55.0, 0),
+    (0.5, 1.0, 96, 80, O, 0.6, 100.0, 0),
+    (0.3, 1.2, 97, 61, 2, 1.0, 55.0, 0),
+    (0.7, 1.1, 96, 80, 127, 1.0, 55.0, 0),
+    (0.6, 1.2, 96, 80, 127, 1.0, 55.0, 1),
+], ids=["face", "side", "top", "back", "odd-97x61", "ragged-100x70",
+        "diagonal-minified-O256", "eye-inside-behind", "O2", "odd-O127",
+        "unaligned-C-O127"])
+def test_k2_kernel_matches_plain(theta, phi, width, height, o_res, radius,
+                                 fov, c_offset):
+    """K2 against its plain version: max abs error <= 1e-3, and exactly the
+    background wherever the plain version's pixel is off the intermediate
+    (the kernel's maps round as PyTorch's; a culled tile or an invalid
+    pixel loads nothing). The cases reach the scalar-store path (W % 4 !=
+    0), ragged tiles, an intermediate larger than the screen (minified), a
+    wide field of view from inside the volume with part of the screen at
+    t_base <= 0 and rays near the plane's horizon, O = 2, an odd O, and a C
+    that is a view 4 bytes into its storage."""
     dev = _card()
     p = rp.default_render_params(SHAPE, bg_color=(0.1, 0.0, 0.3), device=dev)
-    basis = _basis(p, theta, phi, dev)
+    basis = OrbitalCamera(
+        radius=rp.default_camera_radius(p, SHAPE) * radius, theta=theta,
+        phi=phi, fov_y=np.radians(fov), min_radius=0.01).basis(dev)
     axis = sw.dominant_axis(basis)
     dims = tuple(SHAPE[o] for o in sw._ORDER[axis])
-    geom = sw.content_geometry(basis, p, dims, axis, O, 96, 80)
+    geom = sw.content_geometry(basis, p, dims, axis, o_res, width, height)
     s = sw.warp_scalars(geom, basis, p.bg_color)
-    C = torch.rand((O, O, 3), device=dev,
+    C = torch.rand(o_res * o_res * 3 + c_offset, device=dev,
                    generator=torch.Generator(dev).manual_seed(0))
+    C = C[c_offset:].view(o_res, o_res, 3)
     before = warp.warp_screen.launches
-    out = warp.warp_screen(C, s, axis, 96, 80)
+    out = warp.warp_screen(C, s, axis, width, height)
     torch.cuda.synchronize()
     assert warp.warp_screen.launches == before + 1
-    ref = warp.warp_screen_plain(C, s, axis, 96, 80)
-    assert out.shape == (80, 96, 3)
+    ref = warp.warp_screen_plain(C, s, axis, width, height)
+    _, _, valid = warp.screen_maps(s, axis, o_res, width, height)
+    assert out.shape == (height, width, 3)
+    assert bool(valid.any()) and not bool(valid.all())
     assert float((out - ref).abs().max()) <= 1e-3
+    assert torch.equal(out[~valid], ref[~valid])
+    assert bool((out[~valid] == s[21:24]).all())
+    if fov > 55.0:
+        assert bool((_t_base(s, axis, width, height) <= 0).any())
+
+
+def _t_base(s, axis, width, height):
+    """(H, W): the ray parameter of each pixel's hit on the base plane, as
+    ``warp.screen_maps`` computes it (the ray's sweep component dk from the
+    packed camera's right, up and forward, axis ``axis``)."""
+    f = 1.0 / torch.tan(0.5 * s[12])
+    xs = (torch.arange(width, device=s.device) + 0.5) / width * 2.0 - 1.0
+    ys = (torch.arange(height, device=s.device) + 0.5) / height * 2.0 - 1.0
+    cx = (xs * (width / height) / f)[None, :]
+    cy = (-ys / f)[:, None]
+    dk = cx * s[3 + axis] + cy * s[6 + axis] + s[9 + axis]
+    denom = torch.where(dk.abs() < 1e-6, torch.full_like(dk, 1e-6), dk)
+    return (s[13] - s[14]) / denom
 
 
 @pytest.mark.cuda
@@ -343,6 +388,22 @@ def test_sweep_cuda_frame_matches_scan_and_counts(scene):
             warp.warp_screen.launches - k2) == (1, 1)
     ref = scan.render(basis, p)
     assert float((img - ref).abs().max()) <= 3e-3
+
+
+@pytest.mark.cuda
+def test_k2_stream_handle_is_the_current_stream():
+    """K2 launches on the handle of ``warp.current_stream_handle``, which
+    reads it through a private torch call: this CUDA build has that call,
+    and it gives the current stream's handle, the default one and one
+    entered by ``torch.cuda.stream``."""
+    dev = _card()
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream"), torch.__version__
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    assert warp.current_stream_handle(index) == \
+        torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream(index)
+    with torch.cuda.stream(side):
+        assert warp.current_stream_handle(index) == side.cuda_stream
 
 
 @pytest.mark.cuda
