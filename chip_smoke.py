@@ -14,7 +14,9 @@ resolve to ``fused`` (the INR's strided prediction field, stage 1, K1 with
 the field overlay K1b, K2); the frame's FLOP/MFU accounting of
 ``bench.py``, whose exact stage-2 count comes from K1 with its
 executed-plane counter (K1c); and the two BraTS front ends, the viewer CLI
-and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
+and the HTTP frame server, on a 256^3 NIfTI case written to disk; and
+INR training (``train_inr``) at the default configuration, whose trained
+field the neural frame then renders. Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -62,7 +64,21 @@ and the HTTP frame server, on a 256^3 NIfTI case written to disk. Phases:
               --neural-march at a small size; the HTTP server on the case
               at 1024^2: /info, / and SERVER_FRAMES /frame requests, each
               200 with a 1024^2 PNG, timed as render + PNG encode
- 11. report   the kernels JSON line, the card's name and power limit, and
+ 11. train    INR training through ``train_inr`` at the full default
+              ``TrainConfig()`` on TRAIN_CASES synthetic cases of BraTS
+              2023's 240 x 240 x 155 (4 train, 1 validation), written
+              under build/ and removed after: wall time by part, ms per
+              step over steps 101-2000 (CUDA events at the log steps),
+              voxels/s, peak memory; the loss must halve and stay finite,
+              the validation Dice beat the initial weights', the final
+              checkpoint reload with bit-equal logits (and in the flat
+              format), and RESUME_STEPS straight equal half, a resume from
+              the train state and half again (<= RESUME_TOL); the trained
+              field rendered by NeuralBratsRenderer('auto' -> 'fused',
+              fused vs scan >= 40 dB, K1b launches = TRAIN_FRAMES); and a
+              profile of PROFILE_STEPS steady steps (device operations,
+              busy time and idle share per step)
+ 12. report   the kernels JSON line, the card's name and power limit, and
               the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
@@ -71,6 +87,7 @@ without the port package. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -105,6 +122,15 @@ BUILD = pathlib.Path(__file__).resolve().parent / "build"
 # Added to the random INR's last bias so that several classes appear
 # (tests/test_neural_march.py:176).
 BIAS_NUDGE = (0.0, 0.4, 0.5, 0.45)
+# The [train] phase: BraTS 2023 GLI's case shape, the one cut (5 of its
+# 625 cases: 4 train, 1 validation), the exact-resume check's run length and
+# its bound, the trained field's orbit frames, the profiled steady steps.
+TRAIN_SHAPE = (240, 240, 155)
+TRAIN_CASES = 5
+RESUME_STEPS = 40
+RESUME_TOL = 1e-5
+TRAIN_FRAMES = 5
+PROFILE_STEPS = 20
 # Kernel vs plain version, max abs error on C, T and the frame: both sides
 # read the same bf16 stage-1 rows and do the same fp32 operations in the
 # same order; 1e-3 leaves room for the compiler's fused multiply-adds and
@@ -159,7 +185,8 @@ def cuda_ms(torch, fn, n: int, warm: int = 2) -> float:
 
 def device_activity(torch, fn, n: int, flush=None):
     """{name: (count, us)} of the device activities torch.profiler records
-    over ``n`` calls of ``fn`` (after one untimed call). ``flush``, when
+    over ``n`` calls of ``fn`` (after one untimed call), user annotations
+    left out. ``flush``, when
     given, runs before each call; activities whose name holds
     ``FLUSH_OP`` are left out."""
     from torch.autograd import DeviceType
@@ -176,8 +203,11 @@ def device_activity(torch, fn, n: int, flush=None):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
+        # A user annotation (an optimizer's step) spans kernels counted on
+        # their own.
         if e.device_type == DeviceType.CUDA and not (
-                flush is not None and FLUSH_OP in e.name):
+                flush is not None and FLUSH_OP in e.name) and not getattr(
+                    e, "is_user_annotation", False):
             k, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
     return by_name
@@ -563,7 +593,10 @@ def run(torch) -> int:
     # ------------------------------------------------------ 10. front ends
     front_end_phase(torch, card)
 
-    # -------------------------------------------------------- 11. report
+    # ------------------------------------------------------- 11. training
+    train_phase(torch, card)
+
+    # -------------------------------------------------------- 12. report
     report = {"kernels": [
         {"name": "K1a composite", "route": "cuda",
          "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
@@ -621,6 +654,24 @@ def k2_poses(torch, renderer, p, radius: float, composite, shearwarp, warp,
             raise RuntimeError(f"K2 disagrees with its plain version at {name}")
         worst = max(worst, err)
     return worst
+
+
+def fused_vs_scan(renderer, basis, p):
+    """(PSNR, frame, field): the fused mode-2 frame (K1b) against the plain
+    scan over the same prepared frame, geometry and field."""
+    from mri_raytracer_tpu_torch.eval.metrics import psnr
+    from mri_raytracer_tpu_torch.ops import neural_march as nm, shearwarp
+
+    model, params = renderer.model, renderer.params
+    S, Kf = renderer.stride, renderer.kstride
+    fr = renderer.sweep_frame(basis, p)
+    field = nm.frame_field(model, params, fr, S, Kf)
+    C = nm._render_neural_fused(fr, model, params, S, Kf, field=field)
+    fused = shearwarp.warp_to_screen(C, fr.geom, fr.basis, fr.axis, WIDTH,
+                                     HEIGHT, fr.p.bg_color)
+    scan = nm._render_neural_axis(fr, model, params, WIDTH, HEIGHT, S, Kf,
+                                  field=field)
+    return psnr(fused.clamp(0.0, 1.0), scan.clamp(0.0, 1.0)), fr, field
 
 
 def neural_phase(torch, raw, mods, seg, radius: float, card: str,
@@ -734,14 +785,7 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
     worst = None
     for name, th, ph in POSES:
         b = OrbitalCamera(radius=radius, theta=th, phi=ph).basis()
-        frq = renderer.sweep_frame(b, p)
-        fq = nm.frame_field(model, params, frq, S, Kf)
-        C = nm._render_neural_fused(frq, model, params, S, Kf, field=fq)
-        fused = shearwarp.warp_to_screen(C, frq.geom, frq.basis, frq.axis,
-                                         WIDTH, HEIGHT, frq.p.bg_color)
-        scan = nm._render_neural_axis(frq, model, params, WIDTH, HEIGHT, S,
-                                      Kf, field=fq)
-        q = psnr(fused.clamp(0.0, 1.0), scan.clamp(0.0, 1.0))
+        q, frq, _ = fused_vs_scan(renderer, b, p)
         log("neural", f"quality {name} (theta {th:.3f}, phi {ph:.3f}): "
             f"fused vs scan {q:.2f} dB (O={frq.out_res}, same field)")
         worst = q if worst is None else min(worst, q)
@@ -1083,6 +1127,291 @@ def front_end_phase(torch, card: str) -> None:
             f"{SERVER_FRAMES} + warm-up {APP_WARMUP})")
         if grew != (want, want) or thread.is_alive():
             raise RuntimeError("server launch counts or shutdown wrong")
+
+
+class _Stop(Exception):
+    """Ends a [train] run from its step hook."""
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """While open, ``module.name`` is ``wrap(original)``."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def step_hook(hook):
+    """While open, every train step the engine builds runs as
+    ``hook(step, args)``, where ``step(*args)`` is the real step and
+    ``args`` its ``(params, optimizer, generator, mods, segs, step_idx,
+    boundary)``: the hook may record around the call or end the run."""
+    from mri_raytracer_tpu_torch.train import steps
+
+    def wrap(build):
+        def hooked_build(*a, **kw):
+            step = build(*a, **kw)
+            return lambda *args: hook(step, args)
+
+        return hooked_build
+
+    return patched(steps, "build_train_step", wrap)
+
+
+def train_phase(torch, card: str) -> None:
+    """Phase 11: INR training through ``train_inr`` at the full default
+    ``TrainConfig()`` on TRAIN_CASES synthetic BraTS-2023-size cases, its
+    checks (loss, Dice, checkpoints, exact resume) and the trained field
+    rendered by the neural frame."""
+    import copy
+
+    from mri_raytracer_tpu_torch import convert
+    from mri_raytracer_tpu_torch.config import ModelConfig, TrainConfig
+    from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+    from mri_raytracer_tpu_torch.data.synthetic import write_synthetic_dataset
+    from mri_raytracer_tpu_torch.eval import inference, metrics
+    from mri_raytracer_tpu_torch.io import checkpoint as ckpt
+    from mri_raytracer_tpu_torch.ops import composite
+    from mri_raytracer_tpu_torch.ops import neural_march as nm
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.train import engine
+
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=BUILD) as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        data = write_synthetic_dataset(tmp / "data", num_cases=TRAIN_CASES,
+                                       shape=TRAIN_SHAPE, seed=0)
+        log("train", f"wrote {TRAIN_CASES} synthetic cases {TRAIN_SHAPE} "
+            f"(seed 0, BraTS-2023 NIfTI layout) in "
+            f"{time.perf_counter() - t0:.1f} s wall, on {card}")
+
+        def config(out: str) -> TrainConfig:
+            c = TrainConfig()
+            c.data.data_root = str(data)
+            c.data.case_limit = TRAIN_CASES
+            c.data.num_folds = TRAIN_CASES
+            c.data.fold_index = 0
+            c.out_dir = str(tmp / out)
+            return c
+
+        # The main run, timed by phase, with CUDA events at the log steps.
+        cfg = config("run")
+        walls = {}
+
+        def timed(fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    walls[fn.__name__] = time.perf_counter() - t
+
+            return call
+
+        events, live = {}, {}
+
+        def main_hook(step, args):
+            params, step_idx = args[0], args[5]
+            if not live:
+                live["init"] = copy.deepcopy(params)
+            live["step"], live["args"] = step, args
+            m = step(*args)
+            if step_idx % cfg.log_every == 0:
+                events[step_idx] = torch.cuda.Event(enable_timing=True)
+                events[step_idx].record()
+            return m
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with patched(engine.cache_mod, "build_train_val_caches", timed), \
+                patched(engine.inference, "evaluate_cases", timed), \
+                step_hook(main_hook):
+            state = engine.train_inr(cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        model, params = state["model"], state["params"]
+        hist = state["history"]
+        log("train", f"TrainConfig() defaults: {cfg.model.kind} "
+            f"{cfg.model.hidden_dims}, {cfg.model.fourier_freqs} harmonics, "
+            f"{cfg.train_steps} steps, global batch {cfg.global_batch} = "
+            f"{cfg.global_batch // cfg.micro_batch} x micro {cfg.micro_batch}"
+            f", {cfg.optim.optimizer} lr {cfg.optim.lr} "
+            f"{cfg.optim.schedule}, clip {cfg.optim.grad_clip}, sampler "
+            f"{cfg.data.sampler}, pool {cfg.data.pool_size}; "
+            f"{state['train_cache'].n_cases} train + "
+            f"{state['val_cache'].n_cases} val cases")
+        log("train", f"wall: train_inr {wall:.1f} s = cache load "
+            f"{walls['build_train_val_caches']:.1f} s + loop "
+            f"{state['train_time_sec']:.1f} s + final eval "
+            f"{walls['evaluate_cases']:.1f} s + the rest (pool, checkpoints"
+            f", logs); peak device memory {peak / 2**20:.1f} MiB "
+            f"(torch.cuda.max_memory_allocated), of which "
+            f"{held / 2**20:.1f} MiB held by earlier phases: "
+            f"{(peak - held) / 2**20:.1f} MiB for training, on {card}")
+        per_step = []
+        marks = sorted(events)
+        for a, b in zip(marks, marks[1:]):
+            if a >= 100:
+                per_step.append(events[a].elapsed_time(events[b]) / (b - a))
+        ms = float(np.median(per_step))
+        log("train", f"ms per step over steps 101-{cfg.train_steps} (CUDA "
+            f"events at the log steps, {len(per_step)} windows of "
+            f"{cfg.log_every}): median {ms:.4f}, mean "
+            f"{float(np.mean(per_step)):.4f}, min {min(per_step):.4f}, max "
+            f"{max(per_step):.4f}; {cfg.global_batch / ms * 1e3:.0f} "
+            f"voxels/s at the median, on {card}")
+        losses = [h["loss"] for h in hist]
+        log("train", f"logged loss: step {hist[0]['step']} {losses[0]:.4g}"
+            f", step {hist[len(hist) // 2]['step']} "
+            f"{losses[len(hist) // 2]:.4g}, step {hist[-1]['step']} "
+            f"{losses[-1]:.4g} ({len(hist)} log steps)")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError("a logged loss is not finite")
+        if not losses[-1] < 0.5 * losses[0]:
+            raise RuntimeError(f"the loss did not halve: {losses[0]:.4f} -> "
+                               f"{losses[-1]:.4f}")
+
+        # Validation: the trained network against itself at its initial
+        # weights, on the same case, by evaluate_single_case's mean Dice.
+        val = state["val_cache"].get(0)
+        agg = state["eval"]
+        pred0, true0 = inference.predict_volume(model, live["init"], val)
+        s0 = metrics.dice_score(pred0, true0, cfg.model.num_classes)
+        valid0 = [v for v in s0.values() if not np.isnan(v)]
+        dice0 = float(np.mean(valid0)) if valid0 else 0.0
+        nc = cfg.model.num_classes
+        log("train", f"val {val['name']}: mean Dice {agg['mean_dice'][0]:.4f}"
+            f" (initial weights {dice0:.4f}); per class "
+            + ", ".join(f"{c}: {agg[f'dice_class_{c}'][0]:.4f}"
+                        for c in range(nc))
+            + "; Hausdorff " + ", ".join(
+                f"{c}: {agg[f'hd_class_{c}'][0]:.2f}" for c in range(nc))
+            + f"; coverage Dice {agg['coverage_dice'][0]:.4f}, on {card}")
+        if not agg["mean_dice"][0] > dice0:
+            raise RuntimeError("validation Dice did not beat the initial "
+                               "weights'")
+
+        # The checkpoints: the object format through model_load, bit-equal
+        # logits; the reference's flat format through load_params.
+        tree, info = ckpt.model_load(state["checkpoint"])
+        m2, p2 = convert.inr_params_from_numpy(
+            tree, ModelConfig.from_info(info), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(9)
+        coords = torch.rand((8192, 3), generator=g, device="cuda") * 2 - 1
+        intens = torch.randn((8192, 4), generator=g, device="cuda")
+        with torch.no_grad():
+            same = torch.equal(model.apply(params, coords, intens),
+                               m2.apply(p2, coords, intens))
+        flat = ckpt.load_params(pathlib.Path(cfg.out_dir) /
+                                f"{cfg.run_name}_flat.npz")
+        flat_ok = all(np.array_equal(a[k], b[k]) for a, b in zip(
+            flat, ckpt.params_to_numpy(params)) for k in ("W", "b"))
+        log("train", f"final checkpoint {pathlib.Path(state['checkpoint']).name}"
+            f" reloads with bit-equal logits: {same}; flat format "
+            f"({len(flat)} layers) equal: {flat_ok}")
+        if not (same and flat_ok):
+            raise RuntimeError("the checkpoint does not reload")
+
+        # Exact resume on the card: 40 steps straight against 20, a stop,
+        # a resume from the train state and 20 more (each run ends at its
+        # last step, before its final eval).
+        snaps = {}
+
+        def stop_after(n, key):
+            def hook(step, args):
+                if args[5] > n:
+                    raise _Stop
+                m = step(*args)
+                if args[5] == n and key:
+                    snaps[key] = copy.deepcopy(args[0])
+                    raise _Stop
+                return m
+
+            return hook
+
+        t0 = time.perf_counter()
+        for out, n, key, every, resume in (
+                ("straight", RESUME_STEPS, "straight", 0, None),
+                ("first", RESUME_STEPS // 2, None, RESUME_STEPS // 2, None),
+                ("resumed", RESUME_STEPS, "resumed", 0,
+                 tmp / "first" / "inr_trainstate.npz")):
+            c = config(out)
+            c.train_steps = RESUME_STEPS
+            c.checkpoint_every = every
+            c.resume_from = None if resume is None else str(resume)
+            with step_hook(stop_after(n, key)):
+                try:
+                    engine.train_inr(c)
+                except _Stop:
+                    pass
+        with torch.no_grad():
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                snaps["straight"].parameters(),
+                snaps["resumed"].parameters()))
+        log("train", f"exact resume: {RESUME_STEPS} steps straight vs "
+            f"{RESUME_STEPS // 2} + resume + {RESUME_STEPS // 2}: max abs "
+            f"param difference {diff:.3e} (bound {RESUME_TOL}), "
+            f"{time.perf_counter() - t0:.1f} s wall")
+        if not diff <= RESUME_TOL:
+            raise RuntimeError("exact resume differs")
+
+        # The trained field through the neural frame on the validation case.
+        disp = np.stack([percentile_normalize(m) for m in val["mods"]])
+        seg = val["seg"].astype(np.int32)
+        renderer = nm.NeuralBratsRenderer(disp, val["mods"], seg, model,
+                                          params, width=WIDTH, height=HEIGHT)
+        if renderer.backend != "fused":
+            raise RuntimeError(f"backend 'auto' resolved to "
+                               f"{renderer.backend}")
+        p = rp.default_render_params(TRAIN_SHAPE, show_seg=True,
+                                     show_pred=True)
+        radius = rp.default_camera_radius(p, TRAIN_SHAPE)
+        cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
+        q, fr, field = fused_vs_scan(renderer, cam.basis(), p)
+        counts = torch.bincount(field.reshape(-1).long(),
+                                minlength=nc).tolist()
+        log("train", f"trained field at the start pose: O={fr.out_res}, "
+            f"field {tuple(field.shape)}, label counts {counts}; fused vs "
+            f"scan {q:.2f} dB (>= {PSNR_MIN_DB})")
+        if not q >= PSNR_MIN_DB:
+            raise RuntimeError(f"trained field: fused vs scan {q:.2f} dB")
+        torch.cuda.synchronize()
+        composite.composite_planes.field_launches = 0
+        for _ in range(TRAIN_FRAMES):
+            cam.orbit(0.03, 0.01)
+            img = renderer.render(cam.basis(), p)
+        torch.cuda.synchronize()
+        k1b = composite.composite_planes.field_launches
+        log("train", f"{TRAIN_FRAMES} orbit frames of the trained field: "
+            f"K1b launches {k1b}")
+        if k1b != TRAIN_FRAMES or not bool(torch.isfinite(img).all()):
+            raise RuntimeError("trained-field frames failed")
+
+        # 20 steady steps of the main run's own step, under the profiler.
+        step, args = live["step"], live["args"]
+        by_name = device_activity(torch, lambda: step(*args), PROFILE_STEPS)
+        if not by_name:
+            log("train", "profile: device time not measured: the profiler "
+                "saw no device activity")
+        else:
+            busy = sum(us for _, us in by_name.values()) / 1e3 / PROFILE_STEPS
+            ops = sum(n for n, _ in by_name.values()) / PROFILE_STEPS
+            log("train", f"profile per step over {PROFILE_STEPS} steps: "
+                f"{ops:.1f} device operations, device busy {busy:.4f} ms; "
+                f"idle share of the {ms:.4f} ms step {1.0 - busy / ms:.3f}, "
+                f"on {card}")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+            for name, (n, us) in top:
+                log("train", f"profile {us / 1e3 / PROFILE_STEPS:8.4f} ms/step"
+                    f" {n / PROFILE_STEPS:6.1f}x  {name[:90]}")
 
 
 def main() -> int:

@@ -9,8 +9,9 @@ own copies of the jax-free helpers it needs.
 Entry points (``render.brats.BratsRenderer``, ``ops.shearwarp.render_brats``,
 ``ops.raymarch.render_brats``, ``ops.neural_march.NeuralBratsRenderer``,
 ``ops.neural_march.render_brats_neural``, ``eval.inference.predict_volume``,
-and the apps ``python -m mri_raytracer_tpu_torch.apps.brats_app`` /
-``.apps.serve``) run on ``cuda`` unless the caller passes ``device="cpu"``
+``train.engine.train_inr``, and the apps ``python -m
+mri_raytracer_tpu_torch.apps.brats_app`` / ``.apps.serve`` /
+``.apps.train_inr``) run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); without a card they raise. The Pallas kernels of the
 JAX package are CUDA C++ kernels here (``csrc/``, built with ``nvcc`` at
 first use by ``ops.kernels``). Each kernel's wrapper runs its plain PyTorch
@@ -19,7 +20,8 @@ tensors.
 
 Module map (port <- JAX package), where the path differs:
 
-    config.py            <- config.py: ModelConfig only (+ from_info)
+    config.py            <- config.py (+ ModelConfig.from_info,
+                            TrainConfig.from_args)
     ops/raymarch.py      <- ops/raymarch_xla.py   (the lockstep oracle)
     ops/composite.py     <- ops/pallas_composite.py (stage 1 + kernel K1)
     ops/warp.py          <- ops/pallas_warp.py      (kernel K2)
@@ -28,13 +30,18 @@ Module map (port <- JAX package), where the path differs:
                             field, K1c executed-plane counter)
     csrc/warp.cu         <- pallas_warp._make_warp_kernel         (K2)
     io/checkpoint.py     <- io/checkpoint.py: the two npz formats, read and
-                            write
+                            write, the train state (generator state in
+                            place of a JAX key); not the torch/orbax loaders
+    apps/train_inr.py    <- scripts/train_inr.py (+ --device)
     io/png.py            (new: RGB8 PNG encoder, zlib + struct)
     convert.py           (new: JAX-side values and INR weights -> port)
-    env.py               (new: torch / CUDA / card / nvcc report)
+    env.py               (new: torch / CUDA / card / nvcc report, device
+                            resolution, fill-made device constants)
 
-Same path on both sides: apps/{brats_app,serve}.py, data/{synthetic,brats,
-nifti}.py, eval/{metrics,inference}.py, models/{features,mlp,api}.py,
-ops/{trilinear,shearwarp,neural_march}.py, render/{params,camera,brats,
-presets}.py, utils/{arith,profiling}.py.
+Same path on both sides: losses.py, apps/{brats_app,serve}.py,
+data/{synthetic,brats,nifti,cache,pool,sampling}.py,
+eval/{metrics,inference}.py, io/{logging,dashboard}.py,
+models/{features,mlp,api}.py, ops/{trilinear,shearwarp,neural_march}.py,
+render/{params,camera,brats,presets}.py,
+train/{optimizers,steps,engine}.py, utils/{arith,profiling}.py.
 """

@@ -56,7 +56,7 @@ def camera_from_packed(vec, device: Union[str, torch.device] = "cpu"
     return unpack_basis(torch.as_tensor(vec, device=device))
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     """{'a.0.W': leaf} state-dict keys of a pytree of dicts and lists."""
     if isinstance(tree, Mapping):
         items = ((str(k), v) for k, v in tree.items())
@@ -66,7 +66,7 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
         return {prefix[:-1]: np.asarray(tree, np.float32)}
     out = {}
     for k, v in items:
-        out.update(_flatten(v, f"{prefix}{k}."))
+        out.update(flatten_tree(v, f"{prefix}{k}."))
     return out
 
 
@@ -88,7 +88,7 @@ def inr_params_from_numpy(tree: Any, cfg: Union[ModelConfig, Mapping],
         cfg = ModelConfig(**{k: v for k, v in cfg.items() if k in names})
     if cfg.rff_dim > 0 and not cfg.aniso_features and rff_B is None:
         raise ValueError("cfg.rff_dim > 0: pass the JAX bundle's rff_B")
-    state = _flatten(tree)
+    state = flatten_tree(tree)
     first = state.get("layers.0.W", state.get("0.W", state.get("l0.W")))
     if first is None:
         raise KeyError(f"no first-layer weight among {sorted(state)}")

@@ -11,7 +11,7 @@ import json
 import os
 import shutil
 import subprocess
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -29,6 +29,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def device_floats(values: Sequence[float],
+                  device: Union[str, torch.device]) -> torch.Tensor:
+    """A float32 tensor of ``values`` on ``device``, made by fills queued
+    like any kernel: ``torch.tensor(values, device=...)`` copies from
+    pageable host memory, and that blocking copy waits for the device's
+    queue to drain, a host sync in the middle of a step."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def nvcc_path() -> Optional[str]:

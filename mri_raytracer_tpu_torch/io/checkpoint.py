@@ -1,4 +1,5 @@
-"""Checkpoint writers and loaders (port of ``io/checkpoint.py:27-98``).
+"""Checkpoint writers and loaders (port of ``io/checkpoint.py:27-136`` and
+``:285-319``).
 
 The JAX package's two on-disk formats are plain numpy, so they are read and
 written here without JAX, and a file written by either package loads in the
@@ -9,7 +10,9 @@ other:
             with a ``{stem}_info.json`` sidecar carrying the config
 
 ``load_params`` returns that numpy pytree; ``convert.inr_params_from_numpy``
-turns it into the port's model. The writers take either such a pytree or
+turns it into the port's model. ``save_train_state`` / ``load_train_state``
+hold an exact-resume state: params, the optimizer's ``state_dict`` (tensors
+as numpy), the ``torch.Generator``'s state and the step. The writers take either such a pytree or
 the port's model (an ``nn.Module`` whose state-dict keys spell the JAX
 layout, ``models/mlp.py``). The object format is a pickle: load only
 checkpoints this project wrote.
@@ -22,6 +25,7 @@ import pathlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def params_to_numpy(params: Any) -> Any:
@@ -49,6 +53,12 @@ def params_to_numpy(params: Any) -> Any:
     return lists(tree)
 
 
+def _obj(x: Any) -> np.ndarray:
+    arr = np.empty((), dtype=object)
+    arr[()] = x
+    return arr
+
+
 def save_flat(params: Any, path) -> None:
     """Flat {W_i, b_i} npz (list-of-layer-dicts models only)."""
     flat = {}
@@ -64,9 +74,7 @@ def save_object(params: Any, path,
     """Object-array npz + ``{stem}_info.json`` sidecar."""
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    arr = np.empty((), dtype=object)
-    arr[()] = params_to_numpy(params)
-    np.savez_compressed(path, params=arr)
+    np.savez_compressed(path, params=_obj(params_to_numpy(params)))
     if info is not None:
         side = path.with_name(f"{path.stem}_info.json")
         side.write_text(json.dumps(info, indent=2, default=str))
@@ -105,12 +113,13 @@ def load_params(npz_path) -> Any:
                    f"{list(npz.files)}")
 
 
-def model_load(npz_path, require_sidecar: bool = True
-               ) -> Tuple[Any, Dict[str, Any]]:
+def model_load(npz_path, config_override: Optional[Dict[str, Any]] = None,
+               require_sidecar: bool = True) -> Tuple[Any, Dict[str, Any]]:
     """(params pytree, config dict) from checkpoint + ``{stem}_info.json``
     sidecar (the reference's ``model_load`` contract,
-    ``inr/inr/model.py:217-301``). ``ModelConfig.from_info`` builds the
-    model config from the dict."""
+    ``inr/inr/model.py:217-301``); ``config_override``'s keys replace the
+    sidecar's. ``ModelConfig.from_info`` builds the model config from the
+    dict."""
     npz_path = pathlib.Path(npz_path).expanduser().resolve()
     if not npz_path.is_file():
         raise FileNotFoundError(f"NPZ file not found: {npz_path}")
@@ -123,4 +132,121 @@ def model_load(npz_path, require_sidecar: bool = True
                                 f"{cfg_path}")
     else:
         config = {}
+    if config_override:
+        config = {**config, **config_override}
     return params, config
+
+
+def _leaves(tree: Any) -> List[Any]:
+    """The leaves of a pytree of dicts and lists in JAX's order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def check_resume_shapes(params: Any, loaded: Any) -> None:
+    """Validate a resume checkpoint (a numpy pytree) against the freshly
+    initialized params (the port's model or a pytree; reference shape
+    check, ``scripts/jax_inr_brats.py:390-396``)."""
+    cur = _leaves(params_to_numpy(params))
+    new = _leaves(loaded)
+    if len(cur) != len(new):
+        raise ValueError(f"resume mismatch: {len(new)} leaves vs expected "
+                         f"{len(cur)}")
+    for a, b in zip(cur, new):
+        if tuple(np.shape(a)) != tuple(np.shape(b)):
+            raise ValueError(f"resume shape mismatch: {np.shape(b)} vs "
+                             f"{np.shape(a)}")
+
+
+def inspect_npz(path, indent: int = 0) -> List[str]:
+    """Human-readable npz tree dump (reference ``scripts/read_npz.py``)."""
+    lines = []
+
+    def walk(obj, name, depth):
+        pad = "  " * depth
+        if isinstance(obj, np.ndarray) and obj.dtype == object \
+                and obj.ndim == 0:
+            lines.append(f"{pad}{name}: <object>")
+            walk(obj.item(), name + "()", depth + 1)
+        elif isinstance(obj, np.ndarray):
+            lines.append(f"{pad}{name}: shape={obj.shape} dtype={obj.dtype}")
+        elif isinstance(obj, dict):
+            lines.append(f"{pad}{name}: dict[{len(obj)}]")
+            for k, v in obj.items():
+                walk(v, str(k), depth + 1)
+        elif isinstance(obj, (list, tuple)):
+            lines.append(f"{pad}{name}: {type(obj).__name__}[{len(obj)}]")
+            for i, v in enumerate(obj):
+                walk(v, f"[{i}]", depth + 1)
+        else:
+            lines.append(f"{pad}{name}: {type(obj).__name__} = {obj!r}")
+
+    npz = np.load(str(path), allow_pickle=True)
+    for key in npz.files:
+        walk(npz[key], key, indent)
+    return lines
+
+
+def _to_numpy(obj: Any) -> Any:
+    """Tensors of a nested state dict as numpy arrays."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_numpy(v) for v in obj)
+    return obj
+
+
+def _to_torch(obj: Any) -> Any:
+    """``_to_numpy``'s inverse (tensors on the CPU; a torch optimizer's
+    ``load_state_dict`` moves its state to its params' device)."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj.copy())
+    if isinstance(obj, dict):
+        return {k: _to_torch(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_torch(v) for v in obj)
+    return obj
+
+
+def save_train_state(path, params: Any, optimizer: Any,
+                     generator: torch.Generator, step: int,
+                     info: Optional[Dict[str, Any]] = None) -> None:
+    """Exact-resume checkpoint: params + optimizer state + the generator's
+    state + step (``train.optimizers.ClippedOptimizer`` or any object with
+    a ``state_dict``).
+
+    The reference resumes params only (``inr/inr/train.py:162-183``), which
+    resets Adam moments and the sampling stream; this format makes resume
+    bit-exact. Object-array npz like ``save_object`` (loadable by
+    ``load_params`` too, and by the JAX package's: the 'params' key is
+    present and first)."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        path, params=_obj(params_to_numpy(params)),
+        opt_state=_obj(_to_numpy(optimizer.state_dict())),
+        rng_state=generator.get_state().numpy(), step=np.int64(step))
+    if info is not None:
+        path.with_name(f"{path.stem}_info.json").write_text(
+            json.dumps(info, indent=2, default=str))
+
+
+def load_train_state(path) -> Dict[str, Any]:
+    """Load an exact-resume checkpoint -> dict(params (numpy pytree),
+    opt_state (a state dict of tensors), rng_state (uint8 tensor), step).
+    Raises KeyError for a params-only checkpoint and for a JAX-written
+    train state, which holds a JAX key, not a generator state."""
+    with np.load(path, allow_pickle=True) as z:
+        if "opt_state" not in z.files or "rng_state" not in z.files:
+            raise KeyError(f"{path} is not a train-state checkpoint of the "
+                           f"port (keys: {z.files})")
+        return {"params": z["params"][()],
+                "opt_state": _to_torch(z["opt_state"][()]),
+                "rng_state": torch.from_numpy(z["rng_state"].copy()),
+                "step": int(z["step"])}

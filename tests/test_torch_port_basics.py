@@ -20,6 +20,8 @@ from mri_raytracer_tpu.ops import raymarch_xla as jrx, trilinear as jtri
 from mri_raytracer_tpu.render import params as jrp
 from mri_raytracer_tpu.render.camera import OrbitalCamera as JCam
 from mri_raytracer_tpu_torch import convert
+from mri_raytracer_tpu_torch.apps import train_inr as train_app
+from mri_raytracer_tpu_torch.config import TrainConfig
 from mri_raytracer_tpu_torch.data import brats as tbrats, synthetic as tsyn
 from mri_raytracer_tpu_torch.eval.metrics import psnr
 from mri_raytracer_tpu_torch.ops import raymarch as trx, shearwarp as tsw
@@ -27,6 +29,7 @@ from mri_raytracer_tpu_torch.ops import trilinear as ttri
 from mri_raytracer_tpu_torch.render import params as trp
 from mri_raytracer_tpu_torch.render.brats import BratsRenderer
 from mri_raytracer_tpu_torch.render.camera import OrbitalCamera as TCam
+from mri_raytracer_tpu_torch.train.engine import train_inr
 
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -62,6 +65,16 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.utils.profiling",
     "mri_raytracer_tpu_torch.apps.brats_app",
     "mri_raytracer_tpu_torch.apps.serve",
+    "mri_raytracer_tpu_torch.losses",
+    "mri_raytracer_tpu_torch.data.cache",
+    "mri_raytracer_tpu_torch.data.pool",
+    "mri_raytracer_tpu_torch.data.sampling",
+    "mri_raytracer_tpu_torch.io.logging",
+    "mri_raytracer_tpu_torch.io.dashboard",
+    "mri_raytracer_tpu_torch.train.optimizers",
+    "mri_raytracer_tpu_torch.train.steps",
+    "mri_raytracer_tpu_torch.train.engine",
+    "mri_raytracer_tpu_torch.apps.train_inr",
 ]
 
 
@@ -95,6 +108,11 @@ def test_default_device_needs_a_card(monkeypatch):
         trx.render_brats(mods, None, None, basis, p, 8, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsw.render_brats(mods, None, None, basis, p, 8, 8)
+    # Training, through the engine and the CLI, before it touches data.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_inr(TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_app.main(["--steps", "1"])
     # The CPU stays available when asked for.
     assert BratsRenderer(mods, device="cpu", width=8, height=8).backend \
         == "sweep"
