@@ -16,7 +16,9 @@ the field overlay K1b, K2); the frame's FLOP/MFU accounting of
 executed-plane counter (K1c); and the two BraTS front ends, the viewer CLI
 and the HTTP frame server, on a 256^3 NIfTI case written to disk; and
 INR training (``train_inr``) at the default configuration, whose trained
-field the neural frame then renders. Phases:
+field the neural frame then renders; and differentiable rendering with
+the two fits of an INR from rendered views (``train/fit_views.py``).
+Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -78,8 +80,29 @@ field the neural frame then renders. Phases:
               fused vs scan >= 40 dB, K1b launches = TRAIN_FRAMES); and a
               profile of PROFILE_STEPS steady steps (device operations,
               busy time and idle share per step)
- 12. report   the kernels JSON line, the card's name and power limit, and
-              the final ok line
+ 12. fit      differentiable rendering and fit-from-views: each
+              autograd.Function (trilinear_sample, composite_fronttoback,
+              isosurface_intersect) against autograd through its plain
+              forward on the card in float64; at the scene of
+              tests/test_diff_shearwarp.py, the 'scan_remat' volume
+              gradient against the unchecked sweep + gather warp and a
+              directional finite difference, and K1 / K2 refusing inputs
+              that require grad; then the two fits of
+              docs/FIT_FROM_VIEWS*.md at their documented configurations
+              (shear-warp: 64^3, 16 + 4 views at 256^2, out_res 128, 400
+              steps of 2 views; marcher: 2,500 steps of 4,096 rays, 48 ->
+              96 samples): wall by part, ms per step (CUDA events, median
+              over steps 51 on), device operations, busy time and idle
+              share per step over profiled steps, peak memory; the loss
+              must halve and stay finite and train and held-out PSNR reach
+              FIT_PSNR_MIN; K2 launches on the shear-warp fit's own path
+              = its 'scan' renders of targets and recovered views, none on
+              the marcher's; the recovered volume's held-out views through
+              'fused' (K1a + K2, one launch each a view) >= 40 dB against
+              'scan', and K1a and K2 against their plain versions at the
+              fit's shapes on those views (<= TOL)
+ 13. report   the kernels JSON line, the card's name and power limit, the
+              script's wall time, and the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
 without the port package. Imports nothing of JAX.
@@ -131,6 +154,23 @@ RESUME_STEPS = 40
 RESUME_TOL = 1e-5
 TRAIN_FRAMES = 5
 PROFILE_STEPS = 20
+# The [fit] phase: docs/FIT_FROM_VIEWS_shearwarp.md's and
+# docs/FIT_FROM_VIEWS.md's configurations (scripts/fit_from_views.py), the
+# PSNR gate of both (train and held-out means), the steps left out of the
+# per-step median (compilation, allocator warm-up), the profiled steps, and
+# the scene of tests/test_diff_shearwarp.py with its bounds.
+FIT_SHAPE = (64, 64, 64)
+FIT_RES = 256
+FIT_VIEWS, FIT_HELD = 16, 4
+FIT_SW_STEPS = 400
+FIT_SW_OUT_RES = 128
+FIT_STEPS = 2500
+FIT_PSNR_MIN = 30.0
+FIT_SKIP = 50
+FIT_PROFILE_STEPS = 3
+GRAD_SHAPE = (24, 24, 20)
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+FD_TOL = 0.02
 # Kernel vs plain version, max abs error on C, T and the frame: both sides
 # read the same bf16 stage-1 rows and do the same fp32 operations in the
 # same order; 1e-3 leaves room for the compiler's fused multiply-adds and
@@ -304,6 +344,7 @@ def run(torch) -> int:
     from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
     from mri_raytracer_tpu_torch.utils import arith
 
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -596,7 +637,10 @@ def run(torch) -> int:
     # ------------------------------------------------------- 11. training
     train_phase(torch, card)
 
-    # -------------------------------------------------------- 12. report
+    # ------------------------------------------------------------ 12. fit
+    fit_phase(torch, card)
+
+    # -------------------------------------------------------- 13. report
     report = {"kernels": [
         {"name": "K1a composite", "route": "cuda",
          "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
@@ -613,6 +657,8 @@ def run(torch) -> int:
         k1b_entry,
         k1c_entry,
     ]}
+    log("report", f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} "
+        f"s, on {card}")
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1412,6 +1458,381 @@ def train_phase(torch, card: str) -> None:
             for name, (n, us) in top:
                 log("train", f"profile {us / 1e3 / PROFILE_STEPS:8.4f} ms/step"
                     f" {n / PROFILE_STEPS:6.1f}x  {name[:90]}")
+
+
+def _plain_composite(torch, colors, alphas):
+    """composite_fronttoback's forward in plain autograd ops."""
+    T_excl = torch.cat([torch.ones_like(alphas[..., :1]),
+                        torch.cumprod(1.0 - alphas, dim=-1)[..., :-1]], -1)
+    C = torch.sum((T_excl * alphas)[..., None] * colors, dim=-2)
+    return C, torch.prod(1.0 - alphas, dim=-1)
+
+
+def _sphere_root(torch, params, o, d):
+    """The entering root of |o + t d - c| = r in closed form."""
+    c, r = params
+    oc = o - c
+    a = torch.sum(d * d, -1)
+    b = torch.sum(d * oc, -1)
+    cc = torch.sum(oc * oc, -1) - r * r
+    return (-b - torch.sqrt(b * b - a * cc)) / a
+
+
+def _grads(torch, fn, inputs):
+    """Gradients of ``fn(*inputs)`` (a scalar) w.r.t. copies of inputs."""
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    fn(*xs).backward()
+    return [x.grad for x in xs]
+
+
+def _max_rel(torch, got, want) -> float:
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
+
+
+def autograd_checks(torch, card: str) -> None:
+    """Each autograd.Function against autograd through its plain forward,
+    on the card in float64."""
+    from mri_raytracer_tpu_torch.ops import diffrender, isosurface, trilinear
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape: torch.rand(shape, generator=g, device=dev,
+                                    dtype=f64)
+    # trilinear_sample: grid and points (inside, and outside the clamp).
+    vol = rnd(9, 8, 7)
+    pts = rnd(4096, 3) * torch.tensor([10.0, 9.0, 8.0], device=dev,
+                                      dtype=f64) - 0.5
+    w = rnd(4096)
+    want = _grads(torch, lambda v, x: (trilinear.trilinear_sample_base(v, x)
+                                       * w).sum(), (vol, pts))
+    got = _grads(torch, lambda v, x: (trilinear.trilinear_sample(v, x)
+                                      * w).sum(), (vol, pts))
+    e_tri = _max_rel(torch, got, want)
+    # composite_fronttoback: colors, alphas and the T_final cotangent.
+    colors, alphas = rnd(256, 48, 3), rnd(256, 48) * 0.9
+    loss = lambda C, T: (C ** 2).sum() + (T ** 3).sum()
+    want = _grads(torch, lambda c, a: loss(*_plain_composite(torch, c, a)),
+                  (colors, alphas))
+    got = _grads(torch, lambda c, a: loss(*diffrender.composite_fronttoback(
+        c, a)), (colors, alphas))
+    e_comp = _max_rel(torch, got, want)
+    # isosurface_intersect: a sphere's entering root, params (centre and
+    # radius), origins and directions, against the closed-form root.
+    n = 512
+    o = torch.stack([torch.full((n,), -2.0, device=dev, dtype=f64),
+                     rnd(n) * 0.4 - 0.2, rnd(n) * 0.4 - 0.2], -1)
+    d = torch.stack([torch.ones(n, device=dev, dtype=f64),
+                     rnd(n) * 0.1 - 0.05, rnd(n) * 0.1 - 0.05], -1)
+    c = torch.tensor([0.1, 0.0, 0.05], device=dev, dtype=f64)
+    r = torch.tensor(0.5, device=dev, dtype=f64)
+    wt = rnd(n)
+    t_lo = torch.full((n,), 0.1, device=dev, dtype=f64)
+    t_hi = torch.full((n,), 4.0, device=dev, dtype=f64)
+    field = lambda p, x: p[1] - torch.linalg.vector_norm(x - p[0], dim=-1)
+    want = _grads(torch, lambda c_, r_, o_, d_: (_sphere_root(
+        torch, (c_, r_), o_, d_) * wt).sum(), (c, r, o, d))
+    iso = isosurface.isosurface_intersect
+    t_star, hit = iso(field, 0.0, 64, (c, r), o, d, t_lo, t_hi)
+    got = _grads(torch, lambda c_, r_, o_, d_: (iso(
+        field, 0.0, 64, (c_, r_), o_, d_, t_lo, t_hi)[0] * wt).sum(),
+        (c, r, o, d))
+    e_root = float((t_star - _sphere_root(torch, (c, r), o, d)).abs().max())
+    e_iso = _max_rel(torch, got, want)
+    log("fit", f"autograd.Functions vs autograd through the plain forward "
+        f"(float64, on {card}): trilinear_sample grid + points max rel err "
+        f"{e_tri:.2e}; composite_fronttoback colors + alphas (with G_T) "
+        f"{e_comp:.2e}; isosurface_intersect ({int(hit.sum())} of {n} rays "
+        f"hit, root err {e_root:.2e}) params + origins + dirs {e_iso:.2e}")
+    if not (bool(hit.all()) and e_tri < 1e-9 and e_comp < 1e-9
+            and e_iso < 1e-6):
+        raise RuntimeError("an autograd.Function disagrees with autograd")
+
+
+def shearwarp_grad_checks(torch, card: str) -> None:
+    """At tests/test_diff_shearwarp.py's scene on the card: 'scan_remat'
+    against the unchecked sweep + gather warp, a directional finite
+    difference, and K1 / K2 refusing grad."""
+    from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+    from mri_raytracer_tpu_torch.data.synthetic import synthetic_case
+    from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw, warp
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+
+    dev = torch.device("cuda")
+    mods, _ = synthetic_case(GRAD_SHAPE, seed=2)
+    disp = torch.as_tensor(np.stack([percentile_normalize(m) for m in mods]),
+                           device=dev)
+    p = rp.default_render_params(GRAD_SHAPE, show_seg=False, device=dev)
+    basis = OrbitalCamera(radius=rp.default_camera_radius(p, GRAD_SHAPE),
+                          theta=0.5, phi=1.2).basis(dev)
+    probe = torch.cos(torch.arange(48.0, device=dev))[None, :]
+    axis = sw.dominant_axis(basis)
+
+    def remat_loss(m):
+        img = sw.render_brats(m, None, None, basis, p, 48, 48, out_res=64,
+                              composite="scan_remat", device=dev)
+        return (img[..., 0] * probe).sum()
+
+    def unchecked_loss(m):
+        vols = sw.prepare_sweep_volumes(m, None, None, p, axis)
+        geom = sw.content_geometry(basis, p, tuple(vols[0].shape), axis, 64,
+                                   48, 48)
+        use_gamma, use_clip = sw.static_flags(p)
+        C, _ = sw.sweep_composite(*vols, geom, p, axis, 64, 1, use_gamma,
+                                  use_clip)
+        img = sw.warp_to_screen(C, geom, basis, axis, 48, 48, p.bg_color,
+                                gather=True)
+        return (img[..., 0] * probe).sum()
+
+    (g_r,) = _grads(torch, remat_loss, (disp,))
+    (g_u,) = _grads(torch, unchecked_loss, (disp,))
+    err = float((g_r - g_u).abs().max())
+    ok_eq = bool(torch.allclose(g_r, g_u, rtol=GRAD_RTOL, atol=GRAD_ATOL))
+    live = float((g_r.abs() > 0).float().mean())
+    dirn = g_r / torch.linalg.vector_norm(g_r)
+    eps = 0.3
+    with torch.no_grad():
+        fd = (float(remat_loss(disp + eps * dirn))
+              - float(remat_loss(disp - eps * dirn))) / (2 * eps)
+    an = float((g_r * dirn).sum())
+    rel = abs(fd - an) / max(abs(an), 1e-9)
+    log("fit", f"shear-warp gradient at {GRAD_SHAPE}, 48^2, out_res 64 (on "
+        f"{card}): scan_remat vs the unchecked sweep + gather warp max abs "
+        f"err {err:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL}: {ok_eq}), "
+        f"{live:.3f} of voxels live; directional FD {fd:.6f} vs analytic "
+        f"{an:.6f}: rel {rel:.4f} (<= {FD_TOL})")
+    if not (ok_eq and live > 0.1 and rel <= FD_TOL):
+        raise RuntimeError("the shear-warp gradient check failed")
+
+    m = disp.clone().requires_grad_(True)
+    refused = []
+    for comp, what in (("scan", "warp_screen (kernel K2)"),
+                       ("fused", "composite_planes (kernel K1)")):
+        try:
+            sw.render_brats(m, None, None, basis, p, 48, 48, out_res=64,
+                            composite=comp, device=dev)
+        except RuntimeError as e:
+            refused.append(what in str(e) and "no backward" in str(e))
+        else:
+            refused.append(False)
+    with torch.no_grad():
+        k1, k2 = composite.composite_planes.launches, warp.warp_screen.launches
+        img = sw.render_brats(m, None, None, basis, p, 48, 48, out_res=64,
+                              composite="fused", device=dev)
+        ran = (composite.composite_planes.launches - k1,
+               warp.warp_screen.launches - k2)
+    log("fit", f"with grad enabled and the volume requiring grad, 'scan' "
+        f"(K2) and 'fused' (K1) refuse: {refused}; under no_grad 'fused' "
+        f"renders (K1, K2 launches {ran})")
+    if not (all(refused) and ran == (1, 1)
+            and bool(torch.isfinite(img).all())):
+        raise RuntimeError("K1 / K2 did not refuse grad")
+
+
+def _step_timer(torch, steps: dict):
+    """A wrap for a fit's step builder: a CUDA event after every step, and
+    the step with its last arguments kept for profiling."""
+    def wrap(build):
+        def built(*a, **kw):
+            step = build(*a, **kw)
+
+            def timed(*args):
+                out = step(*args)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                steps["events"].append(ev)
+                steps["last"] = (step, args)
+                return out
+
+            return timed
+
+        return built
+
+    return wrap
+
+
+def _fit_report(torch, name: str, rec: dict, steps: dict, peak: int,
+                held: int, card: str) -> float:
+    """Log a fit's numbers and check its gates; returns ms per step.
+    ``peak``: the device memory allocated at most during the fit, of which
+    ``held`` was held before it (earlier phases)."""
+    ev = steps["events"]
+    ms = [a.elapsed_time(b) for a, b in zip(ev[FIT_SKIP - 1:], ev[FIT_SKIP:])]
+    med = float(np.median(ms))
+    losses = rec["losses"]
+    log("fit", f"{name}: {rec['n_params']} MLP params, {rec['steps']} steps; "
+        f"wall: targets {rec['wall_s_targets']} s, fit {rec['wall_s_fit']} "
+        f"s, evaluation {rec['wall_s_render']} s; ms per step over steps "
+        f"{FIT_SKIP + 1}-{rec['steps']} (CUDA events): median {med:.3f}, "
+        f"mean {float(np.mean(ms)):.3f}, min {min(ms):.3f}, max "
+        f"{max(ms):.3f}; peak device memory {peak / 2**20:.1f} MiB, of "
+        f"which {held / 2**20:.1f} MiB held before the fit: "
+        f"{(peak - held) / 2**20:.1f} MiB for the fit, on {card}")
+    step, args = steps["last"]
+    by_name = device_activity(torch, lambda: step(*args), FIT_PROFILE_STEPS)
+    if by_name:
+        busy = sum(us for _, us in by_name.values()) / 1e3 / FIT_PROFILE_STEPS
+        ops = sum(n for n, _ in by_name.values()) / FIT_PROFILE_STEPS
+        log("fit", f"{name} profile per step over {FIT_PROFILE_STEPS} steps:"
+            f" {ops:.1f} device operations, device busy {busy:.3f} ms; idle "
+            f"share of the {med:.3f} ms step {1.0 - busy / med:.3f}, on "
+            f"{card}")
+        for op, (n, us) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:8]:
+            log("fit", f"{name} profile {us / 1e3 / FIT_PROFILE_STEPS:9.4f} "
+                f"ms/step {n / FIT_PROFILE_STEPS:8.1f}x  {op[:80]}")
+    else:
+        log("fit", f"{name} profile: device time not measured: the profiler "
+            "saw no device activity")
+    extra = (f", volume PSNR {rec['volume_psnr_db']:.2f} dB"
+             if "volume_psnr_db" in rec else "")
+    log("fit", f"{name}: loss {losses[0]:.4e} -> {losses[-1]:.4e} "
+        f"({len(losses)} logged); PSNR train mean / min "
+        f"{rec['psnr_train_mean']:.2f} / {rec['psnr_train_min']:.2f} dB, "
+        f"held-out {rec['psnr_heldout_mean']:.2f} / "
+        f"{rec['psnr_heldout_min']:.2f} dB{extra} (gate: means >= "
+        f"{FIT_PSNR_MIN} dB, loss halves)")
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0]
+            and rec["psnr_train_mean"] >= FIT_PSNR_MIN
+            and rec["psnr_heldout_mean"] >= FIT_PSNR_MIN):
+        raise RuntimeError(f"{name} fit missed its gates")
+    return med
+
+
+def fit_kernel_checks(torch, baked, bases, p) -> tuple[float, float]:
+    """K1a and K2 against their plain versions at the shear-warp fit's
+    shapes (O = FIT_SW_OUT_RES, FIT_RES^2 frames) on the recovered
+    volume's held-out views: each view's stage-1 inputs as 'fused' makes
+    them, K2 on the plain intermediate. Max abs error <= TOL, and the
+    background exactly wherever the plain pixel is off the intermediate.
+    Returns the largest errors (K1a, K2)."""
+    from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw, warp
+
+    dev = baked.device
+    p = p.to(dev)
+    flags = sw.static_flags(p)
+    err_k1 = err_k2 = 0.0
+    for b in bases:
+        b = b.to(dev)
+        axis = sw.dominant_axis(b)
+        mixed_s, seg_s, pred_s = sw.prepare_sweep_volumes(baked, None, None,
+                                                          p, axis)
+        geom = sw.content_geometry(b, p, tuple(mixed_s.shape), axis,
+                                   FIT_SW_OUT_RES, FIT_RES, FIT_RES)
+        k1 = composite.stage1(mixed_s, seg_s, pred_s, geom, p, axis,
+                              FIT_SW_OUT_RES)
+        C_k, T_k = composite.composite_planes(*k1, *flags)
+        torch.cuda.synchronize()
+        plain = composite.composite_planes_plain(*k1, *flags)
+        s = sw.warp_scalars(geom, b, p.bg_color)
+        img = warp.warp_screen(plain.C, s, axis, FIT_RES, FIT_RES)
+        torch.cuda.synchronize()
+        ref = warp.warp_screen_plain(plain.C, s, axis, FIT_RES, FIT_RES)
+        _, _, valid = warp.screen_maps(s, axis, FIT_SW_OUT_RES, FIT_RES,
+                                       FIT_RES)
+        e1 = max(float((C_k - plain.C).abs().max()),
+                 float((T_k - plain.T).abs().max()))
+        e2 = float((img - ref).abs().max())
+        off_bg = bool((img[~valid] == s[21:24]).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in (C_k, T_k, img))
+        log("fit", f"recovered volume, held-out view (axis {axis}, "
+            f"K={k1.t1b.shape[0]}, O={FIT_SW_OUT_RES}, {FIT_RES}^2): K1a "
+            f"max|kernel - plain| over C, T {e1:.3e}, K2 over the frame "
+            f"{e2:.3e} (tolerance {TOL}); pixels off the intermediate "
+            f"{'all' if off_bg else 'NOT all'} background")
+        if not (e1 <= TOL and e2 <= TOL and off_bg and finite):
+            raise RuntimeError("K1a / K2 disagree with their plain versions "
+                               "at the fit's shapes")
+        err_k1, err_k2 = max(err_k1, e1), max(err_k2, e2)
+    return err_k1, err_k2
+
+
+def kernel_launches(composite, warp) -> tuple[int, int]:
+    return composite.composite_planes.launches, warp.warp_screen.launches
+
+
+def fit_phase(torch, card: str) -> None:
+    """Phase 12: differentiable rendering on the card and the two fits of
+    an INR from rendered views at their documented configurations."""
+    from mri_raytracer_tpu_torch.eval.metrics import psnr
+    from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw, warp
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.train import fit_views as fv
+
+    autograd_checks(torch, card)
+    shearwarp_grad_checks(torch, card)
+    dev = torch.device("cuda")
+    quiet = lambda msg: None
+
+    # The shear-warp fit (docs/FIT_FROM_VIEWS_shearwarp.md).
+    steps = {"events": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+    with patched(fv, "build_shearwarp_step", _step_timer(torch, steps)):
+        rec = fv.run_shearwarp(shape=FIT_SHAPE, res=FIT_RES,
+                               out_res=FIT_SW_OUT_RES,
+                               n_train_views=FIT_VIEWS,
+                               n_held_views=FIT_HELD, steps=FIT_SW_STEPS,
+                               views_per_step=2, seed=0, log_fn=quiet,
+                               device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    ran = kernel_launches(composite, warp)
+    want = (0, 2 * (FIT_VIEWS + FIT_HELD))
+    log("fit", f"shear-warp fit: K1, K2 launches {ran} (K2 renders the "
+        f"{FIT_VIEWS} + {FIT_HELD} targets and again the recovered views in "
+        f"'scan'; the loss warps by the gather; want {want})")
+    if ran != want:
+        raise RuntimeError(f"shear-warp fit launches {ran} != {want}")
+
+    # The recovered volume's held-out views through 'fused' (K1a + K2),
+    # before the profile of _fit_report updates the params again.
+    p = rp.default_render_params(FIT_SHAPE, show_seg=False)
+    bases = fv.make_orbit_bases(
+        FIT_HELD, radius=rp.default_camera_radius(p, FIT_SHAPE),
+        phase=np.pi / FIT_VIEWS, phi=1.3)
+    with torch.no_grad():
+        baked = fv.bake_modalities(rec["_params"], FIT_SHAPE)
+        torch.cuda.synchronize()
+        composite.composite_planes.launches = warp.warp_screen.launches = 0
+        kw = dict(out_res=FIT_SW_OUT_RES, device=dev)
+        fused = [sw.render_brats(baked, None, None, b, p, FIT_RES, FIT_RES,
+                                 composite="fused", **kw) for b in bases]
+        torch.cuda.synchronize()
+        k1, k2 = kernel_launches(composite, warp)
+        scan = [sw.render_brats(baked, None, None, b, p, FIT_RES, FIT_RES,
+                                composite="scan", **kw) for b in bases]
+    q = [psnr(f.clamp(0, 1), s.clamp(0, 1)) for f, s in zip(fused, scan)]
+    log("fit", f"recovered volume, {FIT_HELD} held-out views through "
+        f"'fused': K1 launches {k1}, K2 launches {k2}; fused vs scan "
+        + ", ".join(f"{v:.2f}" for v in q) + f" dB (>= {PSNR_MIN_DB})")
+    if not (k1 == k2 == FIT_HELD and min(q) >= PSNR_MIN_DB):
+        raise RuntimeError("the recovered volume's fused views failed")
+    with torch.no_grad():
+        composite.composite_planes.launches = warp.warp_screen.launches = 0
+        fit_kernel_checks(torch, baked, bases, p)
+    _fit_report(torch, "shear-warp fit", rec, steps, peak, held, card)
+    del rec, baked, steps
+
+    # The marcher fit (docs/FIT_FROM_VIEWS.md).
+    steps = {"events": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+    with patched(fv, "build_fit_step", _step_timer(torch, steps)):
+        rec = fv.run(shape=FIT_SHAPE, res=FIT_RES, n_train_views=FIT_VIEWS,
+                     n_held_views=FIT_HELD, steps=FIT_STEPS, seed=0,
+                     log_fn=quiet, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    ran = kernel_launches(composite, warp)
+    log("fit", f"marcher fit: K1, K2 launches {ran} (the marcher renders "
+        "without the shear-warp kernels; want (0, 0))")
+    if ran != (0, 0):
+        raise RuntimeError(f"marcher fit launches {ran} != (0, 0)")
+    _fit_report(torch, "marcher fit", rec, steps, peak, held, card)
 
 
 def main() -> int:

@@ -9,10 +9,11 @@ own copies of the jax-free helpers it needs.
 Entry points (``render.brats.BratsRenderer``, ``ops.shearwarp.render_brats``,
 ``ops.raymarch.render_brats``, ``ops.neural_march.NeuralBratsRenderer``,
 ``ops.neural_march.render_brats_neural``, ``eval.inference.predict_volume``,
-``train.engine.train_inr``, and the apps ``python -m
-mri_raytracer_tpu_torch.apps.brats_app`` / ``.apps.serve`` /
-``.apps.train_inr``) run on ``cuda`` unless the caller passes ``device="cpu"``
-(``--device cpu``); without a card they raise. The Pallas kernels of the
+``train.engine.train_inr``, ``train.fit_views.run`` / ``run_shearwarp``,
+and the apps ``python -m mri_raytracer_tpu_torch.apps.brats_app`` /
+``.apps.serve`` / ``.apps.train_inr`` / ``.apps.fit_from_views``) run on
+``cuda`` unless the caller passes ``device="cpu"`` (``--device cpu``,
+``--cpu`` for ``fit_from_views``); without a card they raise. The Pallas kernels of the
 JAX package are CUDA C++ kernels here (``csrc/``, built with ``nvcc`` at
 first use by ``ops.kernels``). Each kernel's wrapper runs its plain PyTorch
 version for CPU tensors (the tests) and launches the kernel for CUDA
@@ -33,15 +34,17 @@ Module map (port <- JAX package), where the path differs:
                             write, the train state (generator state in
                             place of a JAX key); not the torch/orbax loaders
     apps/train_inr.py    <- scripts/train_inr.py (+ --device)
+    apps/fit_from_views.py <- scripts/fit_from_views.py
     io/png.py            (new: RGB8 PNG encoder, zlib + struct)
-    convert.py           (new: JAX-side values and INR weights -> port)
+    convert.py           (new: JAX-side values, INR and fit weights ->
+                            port)
     env.py               (new: torch / CUDA / card / nvcc report, device
                             resolution, fill-made device constants)
 
 Same path on both sides: losses.py, apps/{brats_app,serve}.py,
 data/{synthetic,brats,nifti,cache,pool,sampling}.py,
 eval/{metrics,inference}.py, io/{logging,dashboard}.py,
-models/{features,mlp,api}.py, ops/{trilinear,shearwarp,neural_march}.py,
-render/{params,camera,brats,presets}.py,
-train/{optimizers,steps,engine}.py, utils/{arith,profiling}.py.
+models/{features,mlp,api}.py, ops/{trilinear,shearwarp,neural_march,
+diffrender,importance,isosurface}.py, render/{params,camera,brats,presets}.py,
+train/{optimizers,steps,engine,fit_views}.py, utils/{arith,profiling}.py.
 """

@@ -3,7 +3,8 @@
 Volumes and labels cross as numpy arrays. What else crosses is the render
 parameters and the camera, whose JAX forms are a ``BratsRenderParams`` of
 arrays and a packed 13-float camera vector, and the INR's weights, a
-pytree of dicts and lists of arrays (also what ``io.checkpoint`` loads).
+pytree of dicts and lists of arrays (also what ``io.checkpoint`` loads),
+and the fit-from-views field's ``{'B', 'mlp'}`` tree.
 This module turns their numpy values into the port's tensors and modules
 without importing anything of the JAX package.
 """
@@ -20,6 +21,7 @@ from torch import nn
 from mri_raytracer_tpu_torch.config import ModelConfig
 from mri_raytracer_tpu_torch.models import features
 from mri_raytracer_tpu_torch.models.api import ModelBundle, build_model
+from mri_raytracer_tpu_torch.models.mlp import MLP, Dense, RffField
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, unpack_basis
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
 
@@ -107,3 +109,34 @@ def inr_params_from_numpy(tree: Any, cfg: Union[ModelConfig, Mapping],
     except RuntimeError as e:  # missing or unexpected keys, wrong shapes
         raise ValueError(f"params do not fit the config: {e}") from None
     return model, params.to(device)
+
+
+def fit_params_from_numpy(tree: Mapping[str, Any],
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> RffField:
+    """The port's ``RffField`` from a JAX fit-from-views params tree
+    ``{'B': (3, F), 'mlp': [{'W', 'b'}, ...]}`` (``train/fit_views.py``'s
+    ``init_inr_field`` / ``init_modality_inr``) with numpy leaves. The
+    layer widths are read off the arrays."""
+    state = flatten_tree(tree)
+    n_layers = len({k.split(".")[1] for k in state if k.startswith("mlp.")})
+    try:
+        mlp = MLP(Dense(torch.tensor(state[f"mlp.{i}.W"]),
+                        torch.tensor(state[f"mlp.{i}.b"]))
+                  for i in range(n_layers))
+        field = RffField(torch.tensor(state["B"]), mlp)
+    except KeyError as e:
+        raise ValueError(f"not a fit params tree: missing {e}") from None
+    extra = set(state) - set(field.state_dict())
+    if extra:
+        raise ValueError(f"not a fit params tree: unexpected {sorted(extra)}")
+    return field.to(device)
+
+
+def fit_params_to_numpy(field: RffField) -> Dict[str, Any]:
+    """Inverse of ``fit_params_from_numpy``: the JAX tree with numpy
+    leaves."""
+    cpu = lambda t: t.detach().cpu().numpy()
+    return {"B": cpu(field.B),
+            "mlp": [{"W": cpu(layer.W), "b": cpu(layer.b)}
+                    for layer in field.mlp]}

@@ -10,6 +10,8 @@ so checkpoints and converted params map one to one:
   * ``CoordInjectionMLP`` — re-injects coords at hidden layers {1,2,3} and
     modality intensities at {2}, with inverted dropout
     (reference ``improved.ipynb §7``)
+  * ``RffField`` — trainable RFF projection ``B`` + ``MLP``, the fields of
+    ``train/fit_views.py``
 
 ``Dense.W`` is (in, out) and a layer computes ``x @ W + b``, as in JAX.
 Init draws from an explicit ``torch.Generator`` with the JAX package's
@@ -23,6 +25,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from mri_raytracer_tpu_torch.models.features import rff_features
 
 
 class Dense(nn.Module):
@@ -158,6 +162,22 @@ def init_coord_injection_mlp(generator: torch.Generator, coord_feat_dim: int,
         [Dense(glorot(generator, (di, do)), torch.zeros((do,)))
          for di, do in zip(dims_in, dims_out)],
         inject_coords_at, inject_mods_at)
+
+
+# ------------------------------------------------ RFF field (fit-from-views)
+class RffField(nn.Module):
+    """The fit-from-views field's params ``{'B': (3, F), 'mlp': [...]}``
+    (``train/fit_views.py:97-103,227-233``): random Fourier features of
+    the coordinates through a plain MLP. ``B`` is trained with the MLP, as
+    the JAX fits differentiate the whole tree."""
+
+    def __init__(self, B: torch.Tensor, mlp: MLP):
+        super().__init__()
+        self.B = nn.Parameter(B)
+        self.mlp = mlp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(rff_features(x, self.B))
 
 
 def count_params(params: nn.Module) -> int:

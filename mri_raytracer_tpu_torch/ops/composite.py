@@ -49,7 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from mri_raytracer_tpu_torch.ops import shearwarp as sw
+from mri_raytracer_tpu_torch.ops import kernels, shearwarp as sw
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
 
 _F32 = torch.float32
@@ -147,7 +147,8 @@ def composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
             on_plane(m, act)
         planes += act
         actf = act.to(_F32)
-        scale, started = sw.entry_correction(g, actf, started)
+        scale, started = sw.entry_correction(sw.entry_extension(g), actf,
+                                              started)
         dt_e = dt_map * scale
 
         qa = torch.clamp(pos_a, acl, ach)
@@ -195,7 +196,9 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     top of this module); lut (8, 4); vmag, dt_map, r_map (O, O) float32.
     K1b: ``pred_field`` (ceil(K / field_kstride), O / field_stride,
     O / field_stride) uint8 labels, in place of ``pred_rows``. Launches
-    the kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    the kernel for CUDA tensors, runs the plain version for CPU tensors.
+    K1 has no backward: on the card it refuses inputs that require grad
+    while grad is enabled."""
     if t1b.dim() != 3:
         raise ValueError(f"t1b must be (K, Na, O), got {tuple(t1b.shape)}")
     K, Na, O = t1b.shape
@@ -232,6 +235,8 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
         return out[:3] if count_planes else out[:2]
     if dev.type != "cuda":
         raise RuntimeError(f"no compositor for device {dev}")
+    kernels.refuse_grad("composite_planes (kernel K1)",
+                        *(t for _, t, _, _ in checks))
     for name, t, _, _ in checks:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -239,7 +244,6 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
         raise ValueError(f"{K} planes need {_SMEM_RING + K * _SMEM_PLANE} "
                          f"bytes of shared memory, over the {_SMEM_MAX} a "
                          "block may have")
-    from mri_raytracer_tpu_torch.ops import kernels
 
     fn = kernels.function("composite", "mrt_composite", [
         ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p])

@@ -1,0 +1,188 @@
+"""Differentiable volume rendering (port of ``ops/diffrender.py``; reference
+``docs/DifferentiableRendering.md``):
+
+  * front-to-back compositing with a hand-written O(N) reverse pass (a
+    ``torch.autograd.Function`` implementing the doc's §5 adjoint; it saves
+    only alphas, colors and the final transmittance, and recomputes the
+    transmittances)
+  * ``alpha_from_sigma`` with the stable small-tau series (§12)
+  * a differentiable marcher over any field fn (grid trilinear or neural);
+    gradients flow to field parameters, voxel grids, ray origins and
+    directions (§6, §9), with optional per-chunk ``torch.utils.checkpoint``
+  * POI Gaussian influence fields with gradients to positions/weights (§8)
+  * smooth relaxations of hard thresholds (§11)
+
+Coarse-to-fine inverse-CDF sampling (§7) lives in ``ops/importance.py``;
+isosurface implicit differentiation (§10) in ``ops/isosurface.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from mri_raytracer_tpu_torch.ops.trilinear import trilinear_sample
+from mri_raytracer_tpu_torch.render.camera import camera_rays
+
+
+# ----------------------------------------------------------------- composite
+def _exclusive_transmittance(alphas: torch.Tensor) -> torch.Tensor:
+    """T_excl_i = prod_{j<i} (1 - alpha_j): a shifted inclusive cumprod."""
+    return torch.cat([torch.ones_like(alphas[..., :1]),
+                      torch.cumprod(1.0 - alphas, dim=-1)[..., :-1]], dim=-1)
+
+
+class _CompositeFrontToBack(torch.autograd.Function):
+    """colors (..., N, 3), alphas (..., N) -> C (..., 3), T_final (...)."""
+
+    @staticmethod
+    def forward(ctx, colors, alphas):
+        T_excl = _exclusive_transmittance(alphas)
+        C = torch.sum((T_excl * alphas)[..., None] * colors, dim=-2)
+        T_final = torch.prod(1.0 - alphas, dim=-1)
+        ctx.save_for_backward(colors, alphas, T_final)
+        return C, T_final
+
+    @staticmethod
+    def backward(ctx, G, G_T):
+        colors, alphas, T_final = ctx.saved_tensors
+        # max(1 - alpha, 1e-20) keeps the divisions below finite at alpha 1.
+        one_m = torch.clamp(1.0 - alphas, min=1e-20)
+        T_excl = _exclusive_transmittance(alphas)
+        w = T_excl * alphas  # (..., N)
+        d_colors = G[..., None, :] * w[..., None]
+        gc = torch.sum(G[..., None, :] * colors, dim=-1)  # (..., N) G.c_i
+        contrib = w * gc  # T_{i-1} alpha_i (G.c_i)
+        # Suffix sum S_i = sum_{j>i} contrib_j.
+        S = torch.flip(torch.cumsum(torch.flip(contrib, [-1]), -1), [-1]) \
+            - contrib
+        d_alphas = T_excl * gc - S / one_m
+        # dT_final/dalpha_i = -T_final / (1 - alpha_i).
+        d_alphas = d_alphas - (G_T * T_final)[..., None] / one_m
+        return d_colors, d_alphas
+
+
+def composite_fronttoback(colors: torch.Tensor, alphas: torch.Tensor):
+    """Emission-absorption compositing C = sum_i T_{i-1} c_i alpha_i ->
+    (C (..., 3), T_final (...)).
+
+    Differentiable with the manual O(N) adjoint of
+    ``DifferentiableRendering.md §5``:
+      c~_i     = G * T_{i-1} alpha_i
+      alpha~_i = G . (T_{i-1} c_i) - S_i / (1 - alpha_i),
+                 S_i = sum_{j>i} T_{j-1} alpha_j (G . c_j)
+    (the second term folds the T-recurrence adjoint into a suffix sum), plus
+    the final transmittance's own term -G_T T_final / (1 - alpha_i).
+    """
+    return _CompositeFrontToBack.apply(colors, alphas)
+
+
+def alpha_from_sigma(sigma: torch.Tensor, dt, series_eps: float = 1e-4
+                     ) -> torch.Tensor:
+    """alpha = 1 - exp(-sigma dt); series tau - tau^2/2 for tiny tau (§12)."""
+    tau = sigma * dt
+    return torch.where(tau < series_eps, tau - 0.5 * tau * tau,
+                       1.0 - torch.exp(-tau))
+
+
+# ---------------------------------------------------------------- field fns
+def make_grid_field(sigma_grid: torch.Tensor,
+                    color_grid: Optional[torch.Tensor] = None,
+                    vol_min=None, voxel_size=None) -> Callable:
+    """Voxel-grid field: x (world, (...,3)) -> (sigma (...), rgb (...,3)).
+    Gradients flow to the grids through ``trilinear_sample``'s grid
+    gradient and to positions through its positional gradient."""
+    dev = sigma_grid.device
+    vol_min = torch.zeros(3, device=dev) if vol_min is None \
+        else torch.as_tensor(vol_min, dtype=torch.float32, device=dev)
+    voxel_size = torch.ones(3, device=dev) if voxel_size is None \
+        else torch.as_tensor(voxel_size, dtype=torch.float32, device=dev)
+
+    def field(x):
+        pidx = (x - vol_min) / voxel_size
+        sigma = F.softplus(trilinear_sample(sigma_grid, pidx))
+        if color_grid is None:
+            rgb = torch.ones(x.shape[:-1] + (3,), dtype=x.dtype,
+                             device=x.device)
+        else:
+            rgb = torch.sigmoid(torch.stack(
+                [trilinear_sample(color_grid[c], pidx) for c in range(3)],
+                dim=-1))
+        return sigma, rgb
+
+    return field
+
+
+def poi_influence(x: torch.Tensor, positions: torch.Tensor,
+                  amplitudes: torch.Tensor, radii: torch.Tensor
+                  ) -> torch.Tensor:
+    """g(x;P) = sum_k a_k exp(-|x-p_k|^2 / (2 r_k^2)) — Gaussian POI field
+    (§8); autograd yields exactly the doc's dp_k formula."""
+    d2 = torch.sum((x[..., None, :] - positions) ** 2, dim=-1)  # (..., K)
+    return torch.sum(amplitudes * torch.exp(-d2 / (2.0 * radii ** 2)),
+                     dim=-1)
+
+
+def smooth_step(s: torch.Tensor, s0, beta: float = 20.0) -> torch.Tensor:
+    """Sigmoid relaxation of the hard threshold 1[s > s0] (§11)."""
+    return torch.sigmoid(beta * (s - s0))
+
+
+# ------------------------------------------------------------------ marcher
+class DiffRenderOut(NamedTuple):
+    rgb: torch.Tensor  # (..., 3)
+    transmittance: torch.Tensor  # (...)
+
+
+def render_field(field: Callable, origins: torch.Tensor, dirs: torch.Tensor,
+                 t0, t1, n_samples: int = 64,
+                 checkpoint_chunks: int = 0) -> DiffRenderOut:
+    """Differentiable uniform-step march of ``field`` along rays.
+
+    origins/dirs (..., 3); t0/t1 scalars or (...)-shaped. Samples at
+    t_i = t0 + (i + 0.5) dt (midpoint). Gradients reach field params AND
+    (o, d): dL/do = sum_i dL/dx_i, dL/dd = sum_i t_i dL/dx_i — exactly §9,
+    produced by autograd through x_i = o + t_i d.
+
+    ``checkpoint_chunks > 1`` splits the samples into that many equal
+    chunks and evaluates each under ``torch.utils.checkpoint`` (§12 memory
+    note): the backward recomputes a chunk's field instead of storing every
+    sample's activations.
+    """
+    dev = origins.device
+    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    dt = (t1 - t0) / n_samples  # (...) or scalar
+    i = torch.arange(n_samples, dtype=torch.float32, device=dev)
+    ts = t0[..., None] + (i + 0.5) * dt[..., None]  # (..., N)
+    x = origins[..., None, :] + ts[..., None] * dirs[..., None, :]
+
+    if checkpoint_chunks > 1:
+        if n_samples % checkpoint_chunks:
+            raise ValueError(f"n_samples {n_samples} is not divisible into "
+                             f"{checkpoint_chunks} chunks")
+        outs = [checkpoint(field, xc, use_reentrant=False) for xc in
+                torch.split(x, n_samples // checkpoint_chunks, dim=-2)]
+        sigma = torch.cat([o[0] for o in outs], dim=-1)
+        rgb = torch.cat([o[1] for o in outs], dim=-2)
+    else:
+        sigma, rgb = field(x)
+
+    alphas = alpha_from_sigma(sigma, dt[..., None])
+    C, T = composite_fronttoback(rgb, alphas)
+    return DiffRenderOut(rgb=C, transmittance=T)
+
+
+def render_views(field: Callable, bases, width: int, height: int,
+                 t0, t1, n_samples: int = 64) -> torch.Tensor:
+    """Render a batch of camera views -> (V, H, W, 3), fully differentiable
+    (the inverse-rendering training signal: fit fields from images). Rays
+    are made on each basis' device."""
+    imgs = []
+    for basis in bases:
+        ro, rd = camera_rays(basis, width, height)
+        imgs.append(render_field(field, ro, rd, t0, t1, n_samples).rgb)
+    return torch.stack(imgs)

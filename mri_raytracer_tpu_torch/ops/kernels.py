@@ -18,6 +18,8 @@ import subprocess
 import time
 from typing import Dict, Iterable, Sequence, Tuple
 
+import torch
+
 from mri_raytracer_tpu_torch.env import nvcc_path
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -96,3 +98,15 @@ def function(name: str, symbol: str, argtypes: Sequence):
     fn.restype = ctypes.c_int
     _FNS[(name, symbol)] = fn
     return fn
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel has no backward: its output would cut the autograd graph
+    without an error, so an input that requires grad is refused while grad
+    is enabled (JAX: no VJP rule for the Pallas kernels)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input requires grad. Render under "
+            "torch.no_grad(), or differentiate through composite="
+            "'scan_remat' (the plain scan and the gather warp)")

@@ -16,6 +16,18 @@ access is separable 1-D resampling:
      ``ops.composite.sweep_composite_fused`` (stage 1 + kernel K1).
   4. One 2-D homography warp to screen pixels (``ops.warp``, kernel K2).
 
+The scan is differentiable (hat-matrix resampling is linear in the volume,
+the transfer function piecewise smooth), so autograd through
+``composite='scan_remat'`` trains against images from this renderer
+(reference ``docs/Goals.md:36-39``): each plane is rematerialized in the
+backward (``torch.utils.checkpoint``), and the warp is the plain gather
+on every device, since K1 and K2 have no backward and refuse inputs that
+require grad on the card. Clips on the differentiated path are
+``torch.minimum(torch.maximum(x, lo), hi)``: at a tie that splits the
+gradient 0.5/0.5 as ``jnp.clip`` does, where ``torch.clamp`` passes all
+of it (the value clip ties on every zero-background voxel at the default
+window, wl 0.5 / ww 1.0).
+
 Sample positions differ from the uniform-delta-t oracle (plane crossings vs
 fixed steps); both discretize the same integral.
 """
@@ -26,6 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.ops import warp
@@ -313,12 +327,18 @@ def entry_active(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return (g >= -1e-3) | (r >= 1e37)
 
 
-def entry_correction(g, act, started):
+def entry_extension(g):
+    """The entry->crossing distance g = q - r by which a ray's FIRST active
+    plane extends its dt, clipped to [0, 2] (g >= 2: no correction)."""
+    return torch.clamp(g, 0.0, 2.0) * (g < 2.0).to(_F32)
+
+
+def entry_correction(ext, act, started):
     """First-active-plane dt scale + updated per-ray 'started' mask: the
-    FIRST active plane along each ray extends its dt by the entry->crossing
-    distance g = q - r, clipped to [0, 2] (g >= 2: no correction)."""
+    FIRST active plane along each ray extends its dt by ``ext``
+    (``entry_extension``)."""
     first = act * (1.0 - started)
-    scale = 1.0 + torch.clamp(g, 0.0, 2.0) * (g < 2.0).to(_F32) * first
+    scale = 1.0 + ext * first
     return scale, torch.maximum(started, act)
 
 
@@ -359,7 +379,8 @@ def _composite(C, T, rgb, alpha):
 
 def _bf16_dot(a, b):
     """bf16 operands, float32 accumulation (the JAX package's
-    ``preferred_element_type=f32`` dot)."""
+    ``preferred_element_type=f32`` dot). Its backward rounds the
+    cotangent through bf16, as JAX's transpose of a bf16 dot does."""
     return a.to(torch.bfloat16).to(_F32) @ b.to(torch.bfloat16).to(_F32)
 
 
@@ -370,10 +391,18 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                     use_clip: bool = True, z_offset=None,
                     nk_global: Optional[int] = None,
                     pred_field: Optional[torch.Tensor] = None,
-                    field_stride: int = 1, field_kstride: int = 1
+                    field_stride: int = 1, field_kstride: int = 1,
+                    remat: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain scan over slice planes; returns intermediate (O,O,3) emission
     and (O,O) transmittance. Volumes are pre-permuted to (K, A, B).
+
+    ``remat=True`` runs each plane's body under ``torch.utils.checkpoint``
+    (non-reentrant) with the carry (C, T, started) as its inputs: the
+    backward recomputes a plane's resample instead of storing every
+    plane's activations, so backward memory is O(out_res^2) a plane
+    whatever the volume depth (the training path; forward-only rendering
+    keeps remat=False).
 
     Slab mode: ``mixed_s`` holds slices [z_offset, z_offset + K) of an
     ``nk_global``-deep volume; the slab composites its own planes, plus the
@@ -432,15 +461,50 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
     off_b_all, sc_b_all, _ = _inplane_affine(geom, 1, bmin[2], vox[2],
                                              w_k_all)
 
-    C = torch.zeros((out_res, out_res, 3), dtype=_F32, device=dev)
-    T = torch.ones((out_res, out_res), dtype=_F32, device=dev)
-    started = torch.zeros((out_res, out_res), dtype=_F32, device=dev)
-    for m in range(n_planes):
-        z, lam, fz = z_all[m], lam_all[m], fz_all[m]
-        off_a, sc_a = off_a_all[m], sc_a_all[m]
-        off_b, sc_b = off_b_all[m], sc_b_all[m]
-        Wa, mask_a = hat_matrix(off_a, sc_a, Na, out_res, acl, ach, aml, amh)
-        Wb, mask_b = hat_matrix(off_b, sc_b, Nb, out_res, bcl, bch, bml, bmh)
+    if remat:
+        # Training: every plane's weights at once (they do not depend on
+        # the volume, so the backward's recomputation of a plane only
+        # indexes them), at the cost of holding all of them, which the
+        # forward-only path does not pay.
+        all_a = _batched_hat(off_a_all, sc_a_all, Na, out_res, acl, ach, aml,
+                             amh)
+        all_b = _batched_hat(off_b_all, sc_b_all, Nb, out_res, bcl, bch, bml,
+                             bmh)
+
+    def hats(m: int):
+        """Plane m's (O, N) hat weights and (O,) in-box masks, a then b."""
+        if remat:
+            return all_a[0][m], all_a[1][m], all_b[0][m], all_b[1][m]
+        return (*hat_matrix(off_a_all[m], sc_a_all[m], Na, out_res, acl, ach,
+                            aml, amh),
+                *hat_matrix(off_b_all[m], sc_b_all[m], Nb, out_res, bcl, bch,
+                            bml, bmh))
+
+    v_lo = p.wl - p.ww * 0.5
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    one = torch.ones((), dtype=_F32, device=dev)
+
+    def gate(m: int, mask_a, mask_b):
+        """Plane m's gate apart from the T <= 0.01 exit (in the box, inside
+        the clip or in front of the eye, past the march start, owned by
+        the slab) and its first-crossing dt extension: neither depends on
+        the volume, so the backward of 'remat' does not recompute them."""
+        z, lam = z_all[m], lam_all[m]
+        inplane = mask_a[:, None] * mask_b[None, :]
+        g = lam * qfac - r_map
+        if use_clip:
+            t_k = lam * geom.vmag
+            on = (inplane > 0.0) & (t_k >= near_t) & (t_k <= tmax)
+        else:
+            # near/far both disabled: behind-eye planes have lam < 0.
+            on = (inplane > 0.0) & (lam >= 0.0)
+        on = on & entry_active(g, r_map)
+        if slab_mode:
+            on = on & ((z < Nk - 1e-6) | (z + z_off >= nk_g - 1e-6))
+        return on, entry_extension(g)
+
+    def plane(C, T, started, m: int, Wa, Wb, on, ext):
+        fz = fz_all[m]
 
         # z-lerp the two bracketing slices, then separable in-plane resample
         # (bf16 operands, f32 accumulation, as in the JAX package).
@@ -449,32 +513,21 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
         t1 = _bf16_dot(Wa, sl)
         v = _bf16_dot(t1, Wb.T)  # (O, O)
 
-        inplane = mask_a[:, None] * mask_b[None, :]
-        g = lam * qfac - r_map
-        if use_clip:
-            t_k = lam * geom.vmag
-            active = (inplane > 0.0) & (t_k >= near_t) & (t_k <= tmax) \
-                & (T > 0.01)
-        else:
-            # near/far both disabled: behind-eye planes have lam < 0.
-            active = (inplane > 0.0) & (lam >= 0.0) & (T > 0.01)
-        active = active & entry_active(g, r_map)
-        if slab_mode:
-            own = (z < Nk - 1e-6) | (z + z_off >= nk_g - 1e-6)
-            active = active & own
-        act = active.to(_F32)
-
-        scale, started = entry_correction(g, act, started)
+        act = (on & (T > 0.01)).to(_F32)
+        scale, started = entry_correction(ext, act, started)
         dt_e = dt * scale
-        val = torch.clamp((v - (p.wl - p.ww * 0.5)) / p.ww, 0.0, 1.0)
+        # jnp.clip(x, 0, 1) with its 0.5/0.5 gradient at a tie.
+        val = torch.minimum(torch.maximum((v - v_lo) / p.ww, zero), one)
         if use_gamma:
             val = torch.pow(val, p.gamma)
         a = (1.0 - torch.exp(-val * p.intensity_alpha * dt_e)) * act
         C, T = _composite(C, T, val[..., None], a)
 
         if seg_s is not None or pred_s is not None:
-            Wan = nearest_matrix(off_a, sc_a, Na, out_res, acl, acn)
-            Wbn = nearest_matrix(off_b, sc_b, Nb, out_res, bcl, bcn)
+            Wan = nearest_matrix(off_a_all[m], sc_a_all[m], Na, out_res, acl,
+                                 acn)
+            Wbn = nearest_matrix(off_b_all[m], sc_b_all[m], Nb, out_res, bcl,
+                                 bcn)
             zn = zn_all[m]
         if seg_s is not None:
             rgba = _lut_rgba(_nearest_resample(seg_s, zn, Wan, Wbn), p.lut)
@@ -493,19 +546,36 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
             a = (1.0 - torch.exp(-rgba[..., 3] * dt_e * 1.5)) * act \
                 * show_pred
             C, T = _composite(C, T, rgba[..., :3], a)
+        return C, T, started
+
+    C = torch.zeros((out_res, out_res, 3), dtype=_F32, device=dev)
+    T = torch.ones((out_res, out_res), dtype=_F32, device=dev)
+    started = torch.zeros((out_res, out_res), dtype=_F32, device=dev)
+    for m in range(n_planes):
+        Wa, mask_a, Wb, mask_b = hats(m)
+        on, ext = gate(m, mask_a, mask_b)
+        if remat:
+            C, T, started = checkpoint(plane, C, T, started, m, Wa, Wb, on,
+                                       ext, use_reentrant=False)
+        else:
+            C, T, started = plane(C, T, started, m, Wa, Wb, on, ext)
     return C, T
 
 
 # ---------------------------------------------------------------- final warp
 def warp_to_screen(C: torch.Tensor, geom: SweepGeom, basis: CameraBasis,
                    axis: int, width: int, height: int,
-                   bg: torch.Tensor) -> torch.Tensor:
+                   bg: torch.Tensor, gather: bool = False) -> torch.Tensor:
     """Homography warp intermediate (O,O,3) -> screen (H,W,3): each screen
     pixel's ray hits the base plane at t = (w_base - e_k)/d_k, whose
     in-plane coordinates index the intermediate bilinearly (``ops.warp``:
-    kernel K2 on the card, its plain gather version on the CPU)."""
-    return warp.warp_screen(C.contiguous(), warp_scalars(geom, basis, bg),
-                            axis, width, height)
+    kernel K2 on the card, its plain gather version on the CPU).
+    ``gather``: the plain gather warp on every device, the differentiable
+    one (K2 has no backward)."""
+    s = warp_scalars(geom, basis, bg)
+    if gather:
+        return warp.warp_screen_plain(C, s, axis, width, height)
+    return warp.warp_screen(C.contiguous(), s, axis, width, height)
 
 
 def warp_scalars(geom: SweepGeom, basis: CameraBasis,
@@ -574,8 +644,10 @@ def render_prepared(mixed_s, seg_s, pred_s, basis: CameraBasis, p, axis,
                     nk_global=None, ab_offset=None, inplane_global=None,
                     echo=None):
     """Per-frame renderer over cached prepared volumes (the interactive
-    path). ``composite``: 'scan' (``sweep_composite``) or 'fused' (stage 1
-    + kernel K1, ``ops.composite``; supersample 1 only).
+    path). ``composite``: 'scan' (``sweep_composite``), 'scan_remat' (the
+    same with per-plane rematerialization and the gather warp on every
+    device: the differentiable-training variant) or 'fused' (stage 1 +
+    kernel K1, ``ops.composite``; supersample 1 only).
 
     ``z_offset``/``nk_global``: the prepared volumes hold slices
     [z_offset, z_offset + K) of an ``nk_global``-deep volume.
@@ -607,13 +679,17 @@ def render_prepared(mixed_s, seg_s, pred_s, basis: CameraBasis, p, axis,
         if echo is not None:
             return out[2]  # the count map, not an image: no warp
         C = out[0]
-    elif composite == "scan":
+    elif composite in ("scan", "scan_remat"):
         C, _ = sweep_composite(mixed_s, seg_s, pred_s, geom, p, axis, out_res,
                                supersample, use_gamma, use_clip,
-                               z_offset=z_offset, nk_global=nk_global)
+                               z_offset=z_offset, nk_global=nk_global,
+                               remat=composite == "scan_remat")
     else:
         raise ValueError(f"unknown composite {composite!r}")
-    return warp_to_screen(C, geom, basis, axis, width, height, p.bg_color)
+    # The differentiable variant keeps the gather warp on every device, as
+    # the JAX package does on every backend (shearwarp.py:1277-1281).
+    return warp_to_screen(C, geom, basis, axis, width, height, p.bg_color,
+                          gather=composite == "scan_remat")
 
 
 def static_flags(p: BratsRenderParams) -> Tuple[bool, bool]:
@@ -630,7 +706,10 @@ def render_brats(mods, seg, pred, basis: CameraBasis, p: BratsRenderParams,
                  composite: str = "scan", axis: Optional[int] = None,
                  device=None) -> torch.Tensor:
     """Fast counterpart of ``ops.raymarch.render_brats`` -> (H, W, 3) on
-    ``device`` (``cuda`` unless given). ``composite``: 'scan' or 'fused'."""
+    ``device`` (``cuda`` unless given). ``composite``: 'scan', 'scan_remat'
+    (autograd w.r.t. ``mods`` flows through the whole shear-warp
+    factorization with O(out_res^2) backward memory a plane) or 'fused'.
+    ``axis``: the sweep axis, by default ``dominant_axis(basis)``."""
     dev = resolve_device(device)
     out_res = out_res or max(width, height)
     if axis is None:

@@ -110,7 +110,9 @@ def warp_screen_plain(C: torch.Tensor, s: torch.Tensor, axis: int,
 def warp_screen(C: torch.Tensor, s: torch.Tensor, axis: int, width: int,
                 height: int) -> torch.Tensor:
     """(O, O, 3) intermediate + (24,) scalars -> (height, width, 3) frame.
-    Launches K2 for CUDA tensors, runs the plain version for CPU tensors."""
+    Launches K2 for CUDA tensors, runs the plain version for CPU tensors.
+    K2 has no backward: on the card it refuses inputs that require grad
+    while grad is enabled."""
     if C.dim() != 3 or C.shape[0] != C.shape[1] or C.shape[2] != 3 \
             or C.shape[0] < 2:
         raise ValueError(f"C must be (O, O, 3) with O >= 2, got {tuple(C.shape)}")
@@ -126,6 +128,7 @@ def warp_screen(C: torch.Tensor, s: torch.Tensor, axis: int, width: int,
         return warp_screen_plain(C, s, axis, width, height)
     if C.device.type != "cuda":
         raise RuntimeError(f"no warp for device {C.device}")
+    kernels.refuse_grad("warp_screen (kernel K2)", C, s)
     if not (C.is_contiguous() and s.is_contiguous()):
         raise ValueError("C and s must be contiguous")
     index = C.device.index

@@ -75,6 +75,11 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.train.steps",
     "mri_raytracer_tpu_torch.train.engine",
     "mri_raytracer_tpu_torch.apps.train_inr",
+    "mri_raytracer_tpu_torch.ops.diffrender",
+    "mri_raytracer_tpu_torch.ops.importance",
+    "mri_raytracer_tpu_torch.ops.isosurface",
+    "mri_raytracer_tpu_torch.train.fit_views",
+    "mri_raytracer_tpu_torch.apps.fit_from_views",
 ]
 
 

@@ -415,3 +415,46 @@ def test_wrappers_refuse_bad_cuda_input():
         warp.warp_screen(C.transpose(0, 1), s, 0, 4, 4)
     with pytest.raises(ValueError):
         warp.warp_screen(C, s.cpu(), 0, 4, 4)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_grad_and_scan_remat_trains(scene):
+    """K1 and K2 have no backward: with grad enabled they refuse an input
+    that requires grad (a frame through them would cut the graph without
+    an error); under no_grad they render. 'scan_remat' warps with the
+    plain gather on the card, so its gradient reaches the volume, equal to
+    the unchecked sweep's."""
+    dev = _card()
+    disp, _ = scene
+    p = rp.default_render_params(SHAPE, show_seg=False)
+    basis = _basis(p, 0.6, 1.1, dev)
+    mods = torch.tensor(disp, device=dev, requires_grad=True)
+    for comp in ("scan", "fused"):
+        with pytest.raises(RuntimeError, match="no backward"):
+            sw.render_brats(mods, None, None, basis, p, 64, 64, out_res=O,
+                            composite=comp, device=dev)
+        with torch.no_grad():
+            img = sw.render_brats(mods, None, None, basis, p, 64, 64,
+                                  out_res=O, composite=comp, device=dev)
+        assert bool(torch.isfinite(img).all())
+    C = torch.zeros((8, 8, 3), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        warp.warp_screen(C, torch.zeros(24, device=dev), 0, 4, 4)
+
+    probe = torch.cos(torch.arange(64.0, device=dev))[None, :]
+    grads = []
+    for remat in (True, False):
+        m = torch.tensor(disp, device=dev, requires_grad=True)
+        pd = p.to(dev)
+        axis = sw.dominant_axis(basis)
+        vols = sw.prepare_sweep_volumes(m, None, None, pd, axis)
+        geom = sw.content_geometry(basis, pd, tuple(vols[0].shape), axis, O,
+                                   64, 64)
+        Cs, _ = sw.sweep_composite(*vols, geom, pd, axis, O, 1, False, False,
+                                   remat=remat)
+        img = sw.warp_to_screen(Cs, geom, basis, axis, 64, 64, pd.bg_color,
+                                gather=True)
+        (img[..., 0] * probe).sum().backward()
+        grads.append(m.grad)
+    assert float(grads[0].abs().max()) > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-6)
