@@ -17,8 +17,10 @@ executed-plane counter (K1c); and the two BraTS front ends, the viewer CLI
 and the HTTP frame server, on a 256^3 NIfTI case written to disk; and
 INR training (``train_inr``) at the default configuration, whose trained
 field the neural frame then renders; and differentiable rendering with
-the two fits of an INR from rendered views (``train/fit_views.py``).
-Phases:
+the two fits of an INR from rendered views (``train/fit_views.py``); and
+the ROI policy renderer with its evaluation protocol and training at
+1920 x 1080 (``ops/roi_policy.py``, ``eval/roi_protocol.py``), which runs
+no kernel of the port (the JAX package computes it in XLA too). Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -101,7 +103,25 @@ Phases:
               'fused' (K1a + K2, one launch each a view) >= 40 dB against
               'scan', and K1a and K2 against their plain versions at the
               fit's shapes on those views (<= TOL)
- 13. report   the kernels JSON line, the card's name and power limit, the
+ 13. roi      the ROI policy renderer (ops/roi_policy, eval/roi_protocol)
+              at the protocol of docs/ROI_RESULTS.md: the five showcase
+              scenes at 96 x 96 x 80, 1920 x 1080, the committed
+              docs/roi_policy.npz, pareto_sweep(foveated=True) over the
+              30-pose orbit at budgets ROI_BUDGETS (ROI_TIMING_FRAMES timed
+              frames); images finite, each voting scene's foveated policy
+              at its operating budget within 0.5 dB of the port's own
+              B1 at 64, each policy median within ROI_JAX_DB of JAX's; the
+              foveated ROI pixels against the full-resolution render at
+              one pose; the LOD series (docs/roi_policy_lod.npz) on tumor-a
+              at 64 within ROI_JAX_DB of JAX's; K1 and K2
+              launch no time on this path; a profile of a foveated policy
+              frame, a full policy frame and a B1 frame at 64; then
+              train_policy as the CLI calls it (800 steps at 96^2, four
+              scenes, validation on tumor-a's held-out views): ms per step
+              from CUDA events, peak memory, the loss finite and its last
+              lap within ROI_LOSS_BAND of its first, best validation
+              wPSNR >= ROI_VAL_MIN_DB
+ 14. report   the kernels JSON line, the card's name and power limit, the
               script's wall time, and the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
@@ -115,6 +135,7 @@ import ctypes
 import json
 import pathlib
 import re
+import shutil
 import struct
 import sys
 import tempfile
@@ -171,6 +192,41 @@ FIT_PROFILE_STEPS = 3
 GRAD_SHAPE = (24, 24, 20)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 FD_TOL = 0.02
+# The [roi] phase: the protocol of docs/ROI_RESULTS.md
+# (scripts/roi_policy_eval.py) at its scene size, resolution, coarse probes,
+# block and reference steps, over its 30-pose orbit; the budgets cut to the
+# operating points and the tuned baseline, the timing frames from 30 to 10.
+# Gates: evaluate_success's 0.5 dB bar at each voting scene's operating
+# budget; each policy median at most ROI_JAX_DB under JAX's
+# (docs/roi_results.json); the LOD series' median at most ROI_JAX_DB under
+# JAX's (its loss against the plain policy is printed: the blend's own
+# error, the mip's prefilter, weighs more in dB under the float32 port's
+# plain policy, 6 dB above JAX's TPU run on tumor-a; at 480 x 270 on the
+# CPU the blend costs JAX 0.62 dB and the port 0.55,
+# tools/roi_gate_evidence.py lod); the foveated ROI pixels against the
+# full-resolution render at the bar of tests/test_roi_policy.py (rtol
+# 1e-4, atol 2e-4); the training's best validation wPSNR at least JAX's
+# 54.94 dB (docs/roi_policy_meta.json) less 1.5 dB, and its loss finite
+# and not diverging: the mean over its last lap of (scene, view) pairs at
+# most ROI_LOSS_BAND times the first lap's. From the occupancy-informed
+# start the loss moves a few percent either way with the init's draw (800
+# steps on the CPU, tools/roi_gate_evidence.py train: torch seed 0 +0.02%,
+# seed 1 -2.91%, JAX's PRNGKey(0) init -3.63% in the port and -3.85% in
+# JAX), so a fall is printed, not required.
+ROI_SHAPE = (96, 96, 80)
+ROI_WIDTH, ROI_HEIGHT = 1920, 1080
+ROI_BUDGETS = (28, 32, 64)
+ROI_TUNED = 64
+ROI_QUALITY_FRAMES = 30
+ROI_TIMING_FRAMES = 10
+ROI_N_COARSE, ROI_BLOCK, ROI_REF_STEPS = 48, 32, 512
+ROI_LOSS_DB = 0.5
+ROI_JAX_DB = 1.0
+ROI_FOV_RTOL, ROI_FOV_ATOL = 1e-4, 2e-4
+ROI_TRAIN_STEPS, ROI_TRAIN_RES = 800, 96
+ROI_VAL_MIN_DB = 54.94 - 1.5
+ROI_LOSS_BAND = 1.05
+ROI_PROFILE_FRAMES = 2
 # Kernel vs plain version, max abs error on C, T and the frame: both sides
 # read the same bf16 stage-1 rows and do the same fp32 operations in the
 # same order; 1e-3 leaves room for the compiler's fused multiply-adds and
@@ -639,6 +695,9 @@ def run(torch) -> int:
 
     # ------------------------------------------------------------ 12. fit
     fit_phase(torch, card)
+
+    # ------------------------------------------------------------ 13. roi
+    roi_phase(torch, card)
 
     # -------------------------------------------------------- 13. report
     report = {"kernels": [
@@ -1833,6 +1892,242 @@ def fit_phase(torch, card: str) -> None:
     if ran != (0, 0):
         raise RuntimeError(f"marcher fit launches {ran} != (0, 0)")
     _fit_report(torch, "marcher fit", rec, steps, peak, held, card)
+
+
+def _roi_finite(sweep: dict) -> bool:
+    """Every frame's metrics finite: a NaN or infinite pixel makes its
+    frame's PSNR NaN or infinite."""
+    return all(np.isfinite(q[m]) for k in ("baseline", "policy",
+                                           "policy_fov", "policy_lod")
+               for q in sweep.get(k, []) for m in ("psnr", "wpsnr", "ssim"))
+
+
+def _roi_protocol(torch, card, scenes, pol, pol_lod, jres, jver, kw,
+                  stride, ru, cache) -> None:
+    """The [roi] sweeps, the foveated check, the LOD series and the frame
+    profile."""
+    from mri_raytracer_tpu_torch.eval import roi_protocol as rpt
+    from mri_raytracer_tpu_torch.ops import composite, roi_policy, warp
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+    failed = []
+    for i, sc in enumerate(scenes):
+        t1 = time.perf_counter()
+        name = sc["name"]
+        views = rpt.make_orbit_views(sc["radius"], ROI_QUALITY_FRAMES)
+        sweep = rpt.pareto_sweep(pol, sc, views, ROI_BUDGETS,
+                                 n_frames=ROI_TIMING_FRAMES, block=ROI_BLOCK,
+                                 foveated=True,
+                                 ref_cache=cache if i == 0 else None, **kw)
+        v = rpt.evaluate_success(sweep, tuned_budget=ROI_TUNED)
+        jv, js = jver[name], jres["scenes"][name]
+        for b, q, f in zip(sweep["baseline"], sweep["policy"],
+                           sweep["policy_fov"]):
+            jf = next(r for r in js["policy_fov"] if r["n"] == f["n"])
+            log("roi", f"{name} n={b['n']}: B1 {b['ms']:.3f} ms "
+                f"{b['wpsnr']:.2f} dB; policy {q['ms']:.3f} ms "
+                f"{q['wpsnr']:.2f} dB; foveated {f['ms']:.3f} ms "
+                f"{f['wpsnr']:.2f} dB [{f['wpsnr_ci'][0]:.2f}, "
+                f"{f['wpsnr_ci'][1]:.2f}], SSIM {f['ssim']:.5f}, "
+                f"{f['steps']:.2f} steps/ray (JAX on a TPU: foveated "
+                f"{jf['wpsnr']:.2f} dB, {jf['ms']:.1f} ms)")
+        b64 = next(q for q in sweep["baseline"] if q["n"] == ROI_TUNED)
+        op = next(q for q in sweep["policy_fov"] if q["n"] == jv["policy_n"])
+        bar = b64["wpsnr"] - ROI_LOSS_DB
+        jbar = jv["policy_wpsnr"] - ROI_JAX_DB
+        vote = i < 4
+        ok = (_roi_finite(sweep) and op["wpsnr"] >= jbar
+              and (op["wpsnr"] >= bar or not vote))
+        log("roi", f"{name}: operating point foveated n={jv['policy_n']} "
+            f"{op['wpsnr']:.2f} dB (gates: >= B1@{ROI_TUNED} "
+            f"{b64['wpsnr']:.2f} - {ROI_LOSS_DB} = {bar:.2f} dB"
+            f"{'' if vote else ', not voting'}; >= JAX's "
+            f"{jv['policy_wpsnr']:.2f} - {ROI_JAX_DB} = {jbar:.2f} dB); "
+            f"evaluate_success: speedup {v['speedup']:.2f}x at "
+            f"{v.get('policy_kind')} n={v.get('policy_n')}, success "
+            f"{v['success']} (JAX on a TPU: {jv['speedup']:.2f}x, "
+            f"{jv['tuned_ms']:.1f} -> {jv['policy_ms']:.1f} ms); "
+            f"{time.perf_counter() - t1:.1f} s, on {card}"
+            f"{'' if ok else ' FAILED'}")
+        if not ok:
+            failed.append(name)
+    peak = torch.cuda.max_memory_allocated()
+    k12 = kernel_launches(composite, warp)
+    log("roi", f"sweeps: K1, K2 launches {k12} (want (0, 0)); peak device "
+        f"memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB "
+        f"over the {held / 2**20:.1f} MiB held before")
+    if failed or k12 != (0, 0):
+        raise RuntimeError(f"[roi] protocol gates failed: {failed}, "
+                           f"launches {k12}")
+
+    # Foveated ROI pixels against the full-resolution policy render.
+    sc, st = scenes[0], rpt.scene_tuple(scenes[0])
+    p = sc["params"]
+    bv = torch.as_tensor(rpt.make_orbit_views(sc["radius"], 1)[0]).to(dev)
+    corners = torch.as_tensor(
+        roi_policy.roi_world_corners(sc["P"], sc["B"], p), device=dev)
+    fov_fn = lambda: roi_policy.render_policy_foveated(
+        pol, *st, bv, p, ROI_WIDTH, ROI_HEIGHT, corners, ROI_N_COARSE,
+        ROI_TUNED, probe_stride=stride, block=ROI_BLOCK, rho_upsample=ru)
+    full_fn = lambda: roi_policy.render_policy(
+        pol, *st, bv, p, ROI_WIDTH, ROI_HEIGHT, ROI_N_COARSE, ROI_TUNED,
+        probe_stride=stride, block=ROI_BLOCK, rho_upsample=ru)
+    b1_fn = lambda: roi_policy.render_fixed(st[0], bv, p, ROI_WIDTH,
+                                            ROI_HEIGHT, ROI_TUNED,
+                                            block=ROI_BLOCK)
+    with torch.no_grad():
+        fov, fst = fov_fn()
+        full, _ = full_fn()
+    x0, y0, rw, rh = (int(fst["rect"][0]), int(fst["rect"][1]),
+                      fst["rect"][2], fst["rect"][3])
+    fe = 16  # render_policy_foveated's feather
+    a = fov[y0 + fe:y0 + rh - fe, x0 + fe:x0 + rw - fe]
+    b = full[y0 + fe:y0 + rh - fe, x0 + fe:x0 + rw - fe]
+    err = float((a - b).abs().max())
+    close = bool(torch.all((a - b).abs() <= ROI_FOV_ATOL
+                           + ROI_FOV_RTOL * b.abs()))
+    log("roi", f"foveated inset at {sc['name']} pose 0, n={ROI_TUNED}: rect "
+        f"({x0}, {y0}, {rw}, {rh}); inside the feather max|foveated - full "
+        f"res| {err:.3e} (rtol {ROI_FOV_RTOL}, atol {ROI_FOV_ATOL}), "
+        f"{int((a != b).any(-1).sum())} of {a.shape[0] * a.shape[1]} pixels "
+        "not bit-equal")
+    if not (close and bool(torch.isfinite(fov).all())):
+        raise RuntimeError("[roi] foveated ROI pixels differ from the full-"
+                           "resolution render")
+    del fov, full, a, b
+
+    # The LOD series (docs/roi_policy_lod.npz) on tumor-a at 64, over the
+    # same orbit, at the CLI's block // 4.
+    t1 = time.perf_counter()
+    sweep_lod = rpt.pareto_sweep(
+        pol, sc, rpt.make_orbit_views(sc["radius"], ROI_QUALITY_FRAMES),
+        [ROI_TUNED], n_frames=ROI_TIMING_FRAMES,
+        block=max(8, ROI_BLOCK // 4), lod=True, policy_lod=pol_lod,
+        ref_cache=cache, **kw)
+    pl, plod = sweep_lod["policy"][0], sweep_lod["policy_lod"][0]
+    jab = jres["lod_ablation"]
+    jbar = jab["policy_lod"][-1]["wpsnr"] - ROI_JAX_DB
+    log("roi", f"LOD at {sc['name']} n={ROI_TUNED}: policy {pl['wpsnr']:.2f} "
+        f"dB {pl['ms']:.3f} ms -> +LOD {plod['wpsnr']:.2f} dB "
+        f"{plod['ms']:.3f} ms, delta {plod['wpsnr'] - pl['wpsnr']:+.2f} dB "
+        f"(JAX on a TPU, 10 poses: {jab['policy'][-1]['wpsnr']:.2f} -> "
+        f"{jab['policy_lod'][-1]['wpsnr']:.2f} dB); gate: +LOD >= "
+        f"{jbar:.2f} dB; {time.perf_counter() - t1:.1f} s, on {card}")
+    if not (_roi_finite(sweep_lod) and plod["wpsnr"] >= jbar):
+        raise RuntimeError("[roi] the LOD series failed its gate")
+
+    # Profile: one foveated policy frame, one full policy frame, one B1 frame
+    # at 64, each beside its unprofiled frame time.
+    with torch.no_grad():
+        for label, fn in (("foveated policy", fov_fn),
+                          ("full policy", full_fn), ("B1", b1_fn)):
+            host_ms = 1e3 * rpt._median_time(lambda: fn()[0], 3)
+            by_name = device_activity(torch, fn, ROI_PROFILE_FRAMES)
+            if not by_name:
+                log("roi", f"profile {label}: device time not measured")
+                continue
+            busy = sum(us for _, us in by_name.values()) / 1e3 \
+                / ROI_PROFILE_FRAMES
+            ops = sum(n for n, _ in by_name.values()) / ROI_PROFILE_FRAMES
+            log("roi", f"profile {label} frame at n={ROI_TUNED}: "
+                f"{host_ms:.3f} ms a frame (median of 3 batches of 3), "
+                f"{ops:.1f} device operations, device busy {busy:.3f} ms, "
+                f"idle share {1.0 - busy / host_ms:.3f}, on {card}")
+            for op_name, (n, us) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][1])[:6]:
+                per = us / 1e3 / ROI_PROFILE_FRAMES
+                log("roi", f"profile {label} {per:8.3f} ms "
+                    f"{n / ROI_PROFILE_FRAMES:6.1f}x  {op_name[:80]}")
+
+
+def roi_phase(torch, card: str) -> None:
+    """Phase 13: the ROI policy renderer's protocol, its LOD series and its
+    training at the documented configuration; gates as ROI_* above."""
+    from mri_raytracer_tpu_torch.apps import roi_policy_eval as app
+    from mri_raytracer_tpu_torch.eval import roi_protocol as rpt
+    from mri_raytracer_tpu_torch.ops import roi_policy
+
+    dev = torch.device("cuda")
+    docs = pathlib.Path(__file__).resolve().parent / "docs"
+    jres = json.loads((docs / "roi_results.json").read_text())
+    jver = {v["scene"]: v for v in jres["verdicts"]}
+    t0 = time.perf_counter()
+    scenes = rpt.build_scenes(ROI_SHAPE, device=dev)
+    pol = roi_policy.load_policy(docs / "roi_policy.npz", device=dev)
+    pol_lod = roi_policy.load_policy(docs / "roi_policy_lod.npz", device=dev)
+    stride = rpt.auto_probe_stride(ROI_WIDTH)
+    ru = rpt.auto_rho_upsample(stride)
+    kw = dict(width=ROI_WIDTH, height=ROI_HEIGHT, ref_steps=ROI_REF_STEPS,
+              n_coarse=ROI_N_COARSE, probe_stride=stride)
+    log("roi", f"{len(scenes)} scenes {[s['name'] for s in scenes]} at "
+        f"{ROI_SHAPE} built in {time.perf_counter() - t0:.1f} s; "
+        f"{ROI_WIDTH}x{ROI_HEIGHT}, n_coarse {ROI_N_COARSE}, probe stride "
+        f"{stride}, rho_upsample {ru}, block {ROI_BLOCK}, reference "
+        f"{ROI_REF_STEPS} steps, budgets {list(ROI_BUDGETS)}, "
+        f"{ROI_QUALITY_FRAMES}-pose orbit, {ROI_TIMING_FRAMES} timed frames")
+
+    # The protocol sweep. The ROI path runs in PyTorch: K1 and K2 launch no
+    # time on it. tumor-a's references are cached under build/ for the LOD
+    # series (removed after).
+    cache = BUILD / "chip_smoke_roi_refs"
+    shutil.rmtree(cache, ignore_errors=True)
+    try:
+        _roi_protocol(torch, card, scenes, pol, pol_lod, jres, jver, kw,
+                      stride, ru, cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+    # Training as the CLI calls it, a CUDA event after every update.
+    events = []
+
+    class Timed(roi_policy.ClippedOptimizer):
+        def step(self):
+            super().step()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    budgets = [int(x) for x in app.DEFAULT_BUDGETS.split(",")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    with patched(roi_policy, "ClippedOptimizer", lambda _: Timed):
+        _, losses, sel, tasks = app.train_protocol_policy(
+            scenes, torch.Generator().manual_seed(0), budgets,
+            ROI_TRAIN_STEPS, ROI_TRAIN_RES, ROI_N_COARSE, ROI_REF_STEPS,
+            ROI_TUNED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    every = sel["eval_every"]
+    # The interval after an evaluation step holds the evaluation.
+    ms = [a.elapsed_time(b) for j, (a, b) in
+          enumerate(zip(events[:-1], events[1:])) if (j + 1) % every]
+    lap = len(tasks) * 3  # every (scene, view) pair once
+    first, last = float(np.mean(losses[:lap])), float(np.mean(losses[-lap:]))
+    log("roi", f"training: {sel['steps_run']} steps at {ROI_TRAIN_RES}^2, "
+        f"{len(tasks)} scenes, n_fine {budgets[len(budgets) // 2]}, "
+        f"validation budgets {sel['val_budgets']}: wall {wall:.1f} s; ms a "
+        f"step (CUDA events, {len(ms)} steps without an evaluation): median "
+        f"{float(np.median(ms)):.3f}, mean {float(np.mean(ms)):.3f}; peak "
+        f"device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} "
+        f"MiB for the training), on {card}")
+    log("roi", f"training: loss {losses[0]:.4e} -> {losses[-1]:.4e}, mean "
+        f"over the first / last {lap} steps (each scene and view once) "
+        f"{first:.5e} / {last:.5e} ({'fell' if last < first else 'did not '
+        'fall'}; gate: last <= {ROI_LOSS_BAND} x first); selected step "
+        f"{sel['selected_step']}, "
+        f"best validation wPSNR {sel['best_val_wpsnr']:.2f} dB (gate >= "
+        f"{ROI_VAL_MIN_DB:.2f}; JAX on a TPU: 54.94 at step 700), curve "
+        + ", ".join(f"{s}: {q:.2f}" for s, q in sel["val_wpsnr_curve"]))
+    if not (all(np.isfinite(losses)) and last <= ROI_LOSS_BAND * first
+            and sel["best_val_wpsnr"] >= ROI_VAL_MIN_DB):
+        raise RuntimeError("[roi] training missed its gates")
 
 
 def main() -> int:

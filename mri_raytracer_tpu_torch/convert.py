@@ -4,7 +4,8 @@ Volumes and labels cross as numpy arrays. What else crosses is the render
 parameters and the camera, whose JAX forms are a ``BratsRenderParams`` of
 arrays and a packed 13-float camera vector, and the INR's weights, a
 pytree of dicts and lists of arrays (also what ``io.checkpoint`` loads),
-and the fit-from-views field's ``{'B', 'mlp'}`` tree.
+the fit-from-views field's ``{'B', 'mlp'}`` tree, and the ROI policy's
+``{'W1', 'b1', 'W2', 'b2'}`` dict.
 This module turns their numpy values into the port's tensors and modules
 without importing anything of the JAX package.
 """
@@ -140,3 +141,27 @@ def fit_params_to_numpy(field: RffField) -> Dict[str, Any]:
     return {"B": cpu(field.B),
             "mlp": [{"W": cpu(layer.W), "b": cpu(layer.b)}
                     for layer in field.mlp]}
+
+
+ROI_POLICY_KEYS = ("W1", "b1", "W2", "b2")
+
+
+def roi_policy_from_numpy(tree: Mapping[str, Any],
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """The port's ROI policy (``ops/roi_policy``: a dict of float32
+    tensors) from the JAX package's policy dict with numpy leaves
+    (``{k: np.asarray(v)}`` of ``init_policy`` / ``train_policy`` /
+    ``load_policy``). Raises on missing or unexpected keys."""
+    if set(tree) != set(ROI_POLICY_KEYS):
+        raise ValueError(f"not a ROI policy: keys {sorted(tree)}, want "
+                         f"{sorted(ROI_POLICY_KEYS)}")
+    return {k: torch.as_tensor(np.asarray(tree[k], np.float32),
+                               device=device) for k in ROI_POLICY_KEYS}
+
+
+def roi_policy_to_numpy(policy: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """Inverse of ``roi_policy_from_numpy``: float32 numpy leaves."""
+    return {k: policy[k].detach().cpu().numpy().astype(np.float32)
+            for k in ROI_POLICY_KEYS}

@@ -29,10 +29,20 @@ from mri_raytracer_tpu_torch.render.camera import camera_rays
 
 
 # ----------------------------------------------------------------- composite
+def cumprod_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumprod(x, -1)``, scanned with the last axis moved first:
+    the card's scan along the innermost axis runs 6x slower than along an
+    outer one for short rows (``tools/roi_ops_bench.py``: 11.5 against
+    1.8 ms for 32 samples of a 1080p frame, NVIDIA H100 80GB HBM3 at
+    700 W). The leading-axis scan multiplies in sequence, as the CPU's
+    does; the card's innermost scan parts from it by an ulp."""
+    return torch.cumprod(x.movedim(-1, 0).contiguous(), 0).movedim(0, -1)
+
+
 def _exclusive_transmittance(alphas: torch.Tensor) -> torch.Tensor:
     """T_excl_i = prod_{j<i} (1 - alpha_j): a shifted inclusive cumprod."""
     return torch.cat([torch.ones_like(alphas[..., :1]),
-                      torch.cumprod(1.0 - alphas, dim=-1)[..., :-1]], dim=-1)
+                      cumprod_last(1.0 - alphas)[..., :-1]], dim=-1)
 
 
 class _CompositeFrontToBack(torch.autograd.Function):

@@ -23,9 +23,15 @@ from mri_raytracer_tpu_torch.ops.diffrender import (alpha_from_sigma,
                                                     composite_fronttoback)
 
 
+def _full(x: torch.Tensor, v: float) -> torch.Tensor:
+    """A 0-d tensor ``v`` beside ``x``, made by a fill on its device (a
+    ``new_tensor`` upload from host memory waits for the card's queue)."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` with its gradient at ties."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, _full(x, lo)), _full(x, hi))
 
 
 def _cdf_bin_index(t_bins: torch.Tensor, weights: torch.Tensor,
@@ -49,7 +55,7 @@ def _in_bin(u, c0, c1, t0, t1, eps):
     clipped: bins with ~zero mass have c1 - c0 ~ 0 and an unclipped
     (u - c0) / eps shoots the sample far past the bin, breaking the
     monotonicity of t (negative dt downstream -> exploding alpha)."""
-    frac = _clip((u - c0) / torch.maximum(c1 - c0, c0.new_tensor(eps)),
+    frac = _clip((u - c0) / torch.maximum(c1 - c0, _full(c0, eps)),
                  0.0, 1.0)
     return t0 + frac * (t1 - t0)
 
@@ -111,7 +117,7 @@ def inverse_cdf_sample_mm(t_bins: torch.Tensor, weights: torch.Tensor,
     span = t_bins[..., -1:] - t_bins[..., :1]  # (..., 1) ray span
     cap = 2.0 * torch.maximum(length, span / n_fine)
     dt = torch.minimum(length / torch.maximum(n_fine * (c1 - c0),
-                                              c0.new_tensor(eps)), cap)
+                                              _full(c0, eps)), cap)
     return t, dt
 
 

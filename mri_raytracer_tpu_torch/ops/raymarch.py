@@ -64,8 +64,12 @@ def bake_label_rgba(labels: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 
 def transfer_function(v: torch.Tensor, ww, wl, gamma) -> torch.Tensor:
-    """Window/level + gamma (brats_rt.slang:132-133)."""
-    val = torch.clamp((v - (wl - ww * 0.5)) / ww, 0.0, 1.0)
+    """Window/level + gamma (brats_rt.slang:132-133). The clip is
+    ``jnp.clip``'s ``min(max(x, 0), 1)``: where it is differentiated (the
+    ROI policy renderer), a tie passes half the gradient, as in JAX, where
+    ``torch.clamp`` would pass all of it."""
+    x = (v - (wl - ww * 0.5)) / ww
+    val = torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
     return torch.pow(val, gamma)
 
 

@@ -156,17 +156,41 @@ def camera_rays(basis: CameraBasis, width: int, height: int
     dev = basis.eye.device
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height
-    u = xs * 2.0 - 1.0
-    v = ys * 2.0 - 1.0
+    return _rays_from_ndc(basis, xs, ys, width, height)
+
+
+def camera_rays_window(basis: CameraBasis, width: int, height: int,
+                       x0, y0, win_w: int, win_h: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primary rays for the pixel window [y0:y0+win_h, x0:x0+win_w] of a
+    ``width x height`` image, with the per-pixel math of ``camera_rays``:
+    a window ray equals the full-frame ray of the same pixel bit for bit,
+    so a foveated inset composites seamlessly. ``x0``/``y0`` are numbers
+    or float32 0-d tensors (on the basis' device, so no host sync); the
+    window's size is a number."""
+    dev = basis.eye.device
+    xs = (x0 + torch.arange(win_w, dtype=torch.float32, device=dev) + 0.5) \
+        / width
+    ys = (y0 + torch.arange(win_h, dtype=torch.float32, device=dev) + 0.5) \
+        / height
+    return _rays_from_ndc(basis, xs, ys, width, height)
+
+
+def _rays_from_ndc(basis: CameraBasis, xs: torch.Tensor, ys: torch.Tensor,
+                   width: int, height: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, w = ys.shape[0], xs.shape[0]
+    u = xs * 2.0 - 1.0  # (w,)
+    v = ys * 2.0 - 1.0  # (h,)
     f = 1.0 / torch.tan(0.5 * basis.fov_y)
     aspect = width / max(1.0, float(height))
-    cx = (u * aspect / f)[None, :].expand(height, width)
-    cy = (-v / f)[:, None].expand(height, width)
-    cz = torch.ones((height, width), dtype=torch.float32, device=dev)
+    cx = (u * aspect / f)[None, :].expand(h, w)
+    cy = (-v / f)[:, None].expand(h, w)
+    cz = torch.ones((h, w), dtype=torch.float32, device=xs.device)
     cam = torch.stack([cx, cy, cz], dim=-1)
     cam = cam / torch.linalg.vector_norm(cam, dim=-1, keepdim=True)
     d = (cam[..., 0:1] * basis.right + cam[..., 1:2] * basis.up
          + cam[..., 2:3] * basis.forward)
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    o = basis.eye.expand(height, width, 3)
+    o = basis.eye.expand(h, w, 3)
     return o, d

@@ -80,6 +80,9 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.ops.isosurface",
     "mri_raytracer_tpu_torch.train.fit_views",
     "mri_raytracer_tpu_torch.apps.fit_from_views",
+    "mri_raytracer_tpu_torch.ops.roi_policy",
+    "mri_raytracer_tpu_torch.eval.roi_protocol",
+    "mri_raytracer_tpu_torch.apps.roi_policy_eval",
 ]
 
 

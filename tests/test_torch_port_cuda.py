@@ -458,3 +458,53 @@ def test_kernels_refuse_grad_and_scan_remat_trains(scene):
         grads.append(m.grad)
     assert float(grads[0].abs().max()) > 0
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_roi_policy_frame_matches_cpu():
+    """The ROI policy renderer (no kernel of its own: PyTorch on the card)
+    against its CPU path on the same scene and the committed policy: the
+    full-resolution policy frame, the foveated frame and B1, within 1e-3
+    (cuBLAS and the CPU may round a bf16 product's sum differently, which
+    moves a fine sample); then one training step's gradient on the card,
+    finite and pointing where the CPU's does (cosine >= 0.99 over all the
+    policy's parameters: a moved sample changes single terms of it)."""
+    from mri_raytracer_tpu_torch.eval import roi_protocol
+    from mri_raytracer_tpu_torch.ops import roi_policy
+
+    dev = _card()
+    out = {}
+    for d in ("cpu", dev):
+        sc = roi_protocol.build_scenes((32, 32, 28), device=d)[0]
+        st = roi_protocol.scene_tuple(sc)
+        p = sc["params"]
+        pol = roi_policy.load_policy("docs/roi_policy.npz", device=d)
+        bv = torch.as_tensor(roi_protocol.make_orbit_views(
+            sc["radius"], 1)[0]).to(d)
+        corners = torch.as_tensor(roi_policy.roi_world_corners(
+            sc["P"], sc["B"], p), device=d)
+        kw = dict(probe_stride=4, rho_upsample=2, block=16)
+        with torch.no_grad():
+            full, _ = roi_policy.render_policy(pol, *st, bv, p, 96, 64, 16,
+                                               40, **kw)
+            fov, _ = roi_policy.render_policy_foveated(
+                pol, *st, bv, p, 96, 64, corners, 16, 40, **kw)
+            b1, _ = roi_policy.render_fixed(st[0], bv, p, 96, 64, 40,
+                                            block=16)
+        with torch.no_grad():
+            ref, _ = roi_policy.render_fixed(st[0], bv, p, 48, 48, 96)
+        tp = {k: v.clone().requires_grad_(True) for k, v in pol.items()}
+        loss, _ = roi_policy.policy_loss(tp, st, bv, ref, p, 48, 48, 12, 24,
+                                         roi_policy.PolicyConfig(),
+                                         probe_stride=3)
+        loss.backward()
+        out[str(d)] = (full, fov, b1, {k: v.grad for k, v in tp.items()})
+    cpu, card = out["cpu"], out[str(dev)]
+    for a, b in zip(cpu[:3], card[:3]):
+        assert b.device.type == "cuda" and bool(torch.isfinite(b).all())
+        assert float((a - b.cpu()).abs().max()) <= 1e-3
+    g = torch.cat([card[3][k].cpu().reshape(-1) for k in sorted(card[3])])
+    want = torch.cat([cpu[3][k].reshape(-1) for k in sorted(cpu[3])])
+    assert bool(torch.isfinite(g).all()) and float(want.abs().max()) > 0
+    assert float(torch.nn.functional.cosine_similarity(g, want, dim=0)) \
+        >= 0.99
