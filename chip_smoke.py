@@ -20,7 +20,11 @@ field the neural frame then renders; and differentiable rendering with
 the two fits of an INR from rendered views (``train/fit_views.py``); and
 the ROI policy renderer with its evaluation protocol and training at
 1920 x 1080 (``ops/roi_policy.py``, ``eval/roi_protocol.py``), which runs
-no kernel of the port (the JAX package computes it in XLA too). Phases:
+no kernel of the port (the JAX package computes it in XLA too); and the
+secondary renderers through their five apps (the u8 grid volume, the SDF
+sphere tracer, the simplex-noise demo, the brute-force and BVH triangle
+tracers, the hybrid volume + mesh-shadow renderer), which run no kernel
+either. Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -91,16 +95,17 @@ no kernel of the port (the JAX package computes it in XLA too). Phases:
               directional finite difference, and K1 / K2 refusing inputs
               that require grad; then the two fits of
               docs/FIT_FROM_VIEWS*.md at their documented configurations
-              (shear-warp: 64^3, 16 + 4 views at 256^2, out_res 128, 400
-              steps of 2 views; marcher: 2,500 steps of 4,096 rays, 48 ->
-              96 samples): wall by part, ms per step (CUDA events, median
-              over steps 51 on), device operations, busy time and idle
-              share per step over profiled steps, peak memory; the loss
-              must halve and stay finite and train and held-out PSNR reach
-              FIT_PSNR_MIN; K2 launches on the shear-warp fit's own path
-              = its 'scan' renders of targets and recovered views, none on
-              the marcher's; the recovered volume's held-out views through
-              'fused' (K1a + K2, one launch each a view) >= 40 dB against
+              (shear-warp: 64^3, 16 + 4 views at 256^2, out_res 128, 200
+              steps of 2 views, cut from 400; marcher: 2,500 steps of
+              4,096 rays, 48 -> 96 samples): wall by part, ms per step
+              (CUDA events, median over steps 51 on), device operations,
+              busy time and idle share per step over profiled steps, peak
+              memory; the loss must halve and stay finite and train and
+              held-out PSNR reach FIT_PSNR_MIN; K2 launches on the
+              shear-warp fit's own path = its 'scan' renders of targets
+              and recovered views, none on the marcher's; the recovered
+              volume's held-out views through 'fused' (K1a + K2, one
+              launch each a view) >= 40 dB against
               'scan', and K1a and K2 against their plain versions at the
               fit's shapes on those views (<= TOL)
  13. roi      the ROI policy renderer (ops/roi_policy, eval/roi_protocol)
@@ -121,7 +126,32 @@ no kernel of the port (the JAX package computes it in XLA too). Phases:
               from CUDA events, peak memory, the loss finite and its last
               lap within ROI_LOSS_BAND of its first, best validation
               wPSNR >= ROI_VAL_MIN_DB
- 14. report   the kernels JSON line, the card's name and power limit, the
+ 14-18.      the secondary renderers, each app through its main(argv) at
+              its defaults and at a BraTS-shaped size (one 240 x 240 x 155
+              NIfTI case from seed 0, written under build/ and removed
+              after); for each configuration fps (SEC_FRAMES synced frames
+              on the host clock), device operations, busy time and idle
+              share a frame (torch.profiler), peak memory, and for the BVH
+              its traversal steps and host syncs a frame; each renderer's
+              card frame against its CPU frame at CPU_RES^2 (bars SEC_TOL,
+              SEC_AGREE); K1 and K2 launch no time in these phases:
+     volume   volume_app in composite, mip and iso at its defaults
+              (synthetic 96^3 u8, 512^2, 64 steps, 12 frames); a modality
+              through --nii at 64 and 512 steps, and through --format bc4
+              --dims after encode_bc4
+     sdf      sdf_app at its defaults (512^2, 96 steps, 12 frames)
+     noise    noise_app at its defaults (512^2, 12 frames), with and
+              without --mouse
+     mesh     mesh_app on its built-in mesh; ASCII PLY files of the
+              occluder meshes of the 96 x 96 x 80 case (15,312 triangles,
+              'auto' -> brute) and the 240 x 240 x 155 case (83,176,
+              'auto' -> bvh) at 512^2; brute against BVH on the card
+     hybrid   hybrid_app at its defaults (synthetic 96 x 96 x 80, 384^2,
+              192 steps, shadows and skip on, 12 frames); the case through
+              --case with shadows and skip both on and both off, and its
+              frames with each on and off; the one-time mesh extraction
+              and BVH build
+ 19. report   the kernels JSON line, the card's name and power limit, the
               script's wall time, and the final ok line
 
 Needs one CUDA card: exits non-zero, printing no result, without one or
@@ -183,7 +213,9 @@ PROFILE_STEPS = 20
 FIT_SHAPE = (64, 64, 64)
 FIT_RES = 256
 FIT_VIEWS, FIT_HELD = 16, 4
-FIT_SW_STEPS = 400
+# Cut from the documented 400 steps to 200, so that the script with the
+# secondary renderers' phases stays well inside its time limit.
+FIT_SW_STEPS = 200
 FIT_SW_OUT_RES = 128
 FIT_STEPS = 2500
 FIT_PSNR_MIN = 30.0
@@ -227,6 +259,24 @@ ROI_TRAIN_STEPS, ROI_TRAIN_RES = 800, 96
 ROI_VAL_MIN_DB = 54.94 - 1.5
 ROI_LOSS_BAND = 1.05
 ROI_PROFILE_FRAMES = 2
+
+# Phases 14-18: the secondary renderers and their apps (no kernel of the
+# port's; PyTorch on the card, as the JAX package computes them in XLA).
+# Timed frames a configuration (each synced): at most SEC_FRAMES, fewer
+# where the warm-up frame says they would take over SEC_TIMED_S.
+SEC_FRAMES = 3
+SEC_TIMED_S = 1.5
+SEC_PROFILE = 1  # profiled frames a configuration
+SEC_SHAPE = (96, 96, 80)  # hybrid_app's default case; its occluder: 15,312
+BRATS_SHAPE = (240, 240, 155)  # BraTS 2023 GLI's grid; occluder 83,176
+VOL96 = (96, 96, 96)  # volume_app's synthetic default
+CPU_RES = 128  # the card's frame against the CPU's at this size
+# Card against CPU, max abs error: frames without a discrete decision;
+# frames with one must agree on SEC_AGREE of their pixels' decisions and
+# within SEC_TOL where they agree.
+SEC_TOL = 1e-4
+SEC_AGREE = 0.999
+GRID_MODES = ("composite", "mip", "iso")
 # Kernel vs plain version, max abs error on C, T and the frame: both sides
 # read the same bf16 stage-1 rows and do the same fp32 operations in the
 # same order; 1e-3 leaves room for the compiler's fused multiply-adds and
@@ -279,16 +329,17 @@ def cuda_ms(torch, fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_activity(torch, fn, n: int, flush=None):
+def device_activity(torch, fn, n: int, flush=None, warm: bool = True):
     """{name: (count, us)} of the device activities torch.profiler records
-    over ``n`` calls of ``fn`` (after one untimed call), user annotations
-    left out. ``flush``, when
+    over ``n`` calls of ``fn`` (after one untimed call unless ``warm`` is
+    false), user annotations left out. ``flush``, when
     given, runs before each call; activities whose name holds
     ``FLUSH_OP`` are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -699,7 +750,10 @@ def run(torch) -> int:
     # ------------------------------------------------------------ 13. roi
     roi_phase(torch, card)
 
-    # -------------------------------------------------------- 13. report
+    # ---------------------------------------- 14-18. secondary renderers
+    secondary_phases(torch, card)
+
+    # -------------------------------------------------------- 19. report
     report = {"kernels": [
         {"name": "K1a composite", "route": "cuda",
          "source": "mri_raytracer_tpu_torch/csrc/composite.cu",
@@ -2128,6 +2182,468 @@ def roi_phase(torch, card: str) -> None:
     if not (all(np.isfinite(losses)) and last <= ROI_LOSS_BAND * first
             and sel["best_val_wpsnr"] >= ROI_VAL_MIN_DB):
         raise RuntimeError("[roi] training missed its gates")
+
+
+def run_app(phase: str, app, argv) -> str:
+    """``app.main(argv)`` with its stdout echoed under the phase's tag;
+    fails unless it returns 0. Returns what it printed."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main([str(a) for a in argv])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(phase, f"  {line}")
+    log(phase, f"{app.__name__.rsplit('.', 1)[-1]} {' '.join(map(str, argv))}"
+        f": rc {rc}, {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise RuntimeError(f"[{phase}] the app returned {rc}")
+    return text
+
+
+def check_pngs(phase: str, out: pathlib.Path, n: int, size) -> None:
+    pngs = sorted(out.glob("frame_*.png"))
+    sizes = {png_size(f.read_bytes()) for f in pngs}
+    if len(pngs) != n or sizes != {tuple(size)}:
+        raise RuntimeError(f"[{phase}] {out.name}: {len(pngs)} PNGs of "
+                           f"{sizes}, want {n} of {tuple(size)}")
+
+
+def frame_stats(torch, phase: str, label: str, fn, card: str,
+                extra=None, profile: bool = True) -> dict:
+    """One configuration's numbers: fps over up to SEC_FRAMES frames (as
+    many as fit SEC_TIMED_S by the warm-up frame's time, at least one),
+    each timed on the host clock between torch.cuda.synchronize() calls;
+    unless ``profile`` is false, device operations, busy time and idle
+    share a frame from torch.profiler over SEC_PROFILE frames; peak device
+    memory over the timed frames. ``extra()``, when given, adds a string
+    read after the last timed frame (a tracer's counts)."""
+    t_all = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t_all
+    n = max(1, min(SEC_FRAMES, int(SEC_TIMED_S / max(warm, 1e-6))))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    more = extra() if extra is not None else ""
+    ms = 1e3 * float(np.median(times))
+    by_name = (device_activity(torch, fn, SEC_PROFILE, warm=False)
+               if profile else {})
+    busy = sum(us for _, us in by_name.values()) / 1e3 / SEC_PROFILE
+    ops = sum(k for k, _ in by_name.values()) / SEC_PROFILE
+    rec = dict(ms=ms, fps=1e3 / ms, busy_ms=busy, ops=ops,
+               idle=1.0 - busy / ms, peak_mib=peak / 2**20)
+    busy_s = (f"{ops:.1f} device operations, device busy {busy:.3f} ms, "
+              f"idle share {rec['idle']:.3f}" if by_name else
+              "device time not profiled" if not profile else
+              "device time not measured (the profiler saw no device "
+              "activity)")
+    log(phase, f"{label}: {rec['fps']:.3f} fps ({ms:.3f} ms a frame, median "
+        f"of {n} synced frames; min {1e3 * min(times):.3f}, max "
+        f"{1e3 * max(times):.3f}); per frame {busy_s}; peak device memory "
+        f"{rec['peak_mib']:.1f} MiB ({(peak - held) / 2**20:.1f} over the "
+        f"{held / 2**20:.1f} held){more}, on {card}; measured in "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return rec
+
+
+def card_vs_cpu(torch, phase: str, label: str, card_out, cpu_out,
+                decision=None) -> None:
+    """The card's frame against the CPU's. ``decision``: (card, cpu)
+    per-pixel decision masks, or None for a frame without one."""
+    a = card_out.detach().cpu().float()
+    b = cpu_out.detach().float()
+    diff = (a - b).abs()
+    if diff.dim() == 3:
+        diff = diff.amax(-1)
+    finite = bool(torch.isfinite(a).all())
+    if decision is None:
+        err = float(diff.max())
+        ok = finite and err <= SEC_TOL
+        log(phase, f"{label}: card vs CPU max abs error {err:.3e} (bar "
+            f"{SEC_TOL}), {int((diff > 0).sum())} of {diff.numel()} pixels "
+            f"not bit-equal{'' if ok else ' FAILED'}")
+    else:
+        dc, dp = (d.detach().cpu().bool() for d in decision)
+        agree = dc == dp
+        share = float(agree.float().mean())
+        err = float(diff[agree].max()) if bool(agree.any()) else 0.0
+        ok = finite and share >= SEC_AGREE and err <= SEC_TOL
+        log(phase, f"{label}: card vs CPU decisions agree on {share:.6f} "
+            f"of {agree.numel()} pixels ({int((~agree).sum())} differ; bar "
+            f">= {SEC_AGREE}), max abs error where they agree {err:.3e} "
+            f"(bar {SEC_TOL}), {int((diff > 0).sum())} pixels not "
+            f"bit-equal{'' if ok else ' FAILED'}")
+    if not ok:
+        raise RuntimeError(f"[{phase}] {label}: the card's frame differs "
+                           "from the CPU's")
+
+
+def secondary_phases(torch, card: str) -> None:
+    """Phases 14-18: the u8 grid volume, SDF, noise, mesh and hybrid
+    renderers through their apps on the card, at the apps' defaults and at
+    a BraTS-shaped size; K1 and K2 launch no time on these paths."""
+    from mri_raytracer_tpu_torch.data.synthetic import write_synthetic_dataset
+    from mri_raytracer_tpu_torch.ops import composite, warp
+
+    BUILD.mkdir(exist_ok=True)
+    t_all = time.perf_counter()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sec_",
+                                     dir=BUILD) as tmp:
+        work = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        case = write_synthetic_dataset(work / "data", num_cases=1,
+                                       shape=BRATS_SHAPE, seed=0) \
+            / "BraTS-SYN-00000-000"
+        log("volume", f"a {BRATS_SHAPE} NIfTI case (seed 0) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for phase, fn in (("volume", volume_phase), ("sdf", sdf_phase),
+                          ("noise", noise_phase), ("mesh", mesh_phase),
+                          ("hybrid", hybrid_phase)):
+            t0 = time.perf_counter()
+            fn(torch, card, work, case)
+            log(phase, f"phase wall {time.perf_counter() - t0:.1f} s")
+    k12 = kernel_launches(composite, warp)
+    log("hybrid", f"phases 14-18: K1, K2 launches {k12} (want (0, 0)); wall "
+        f"{time.perf_counter() - t_all:.1f} s, on {card}")
+    if k12 != (0, 0):
+        raise RuntimeError(f"[hybrid] K1/K2 launched {k12} times on the "
+                           "secondary renderers' paths")
+
+
+def volume_phase(torch, card: str, work: pathlib.Path, case) -> None:
+    """Phase 14: apps/volume_app.py in its three modes at its defaults
+    (synthetic 96^3 u8, 512^2, 64 steps, 12 frames); a modality of the
+    BraTS-shaped case through --nii at 64 and 512 steps, and through
+    --format bc4 --dims after encode_bc4; each mode's numbers; the card
+    against the CPU at 96^3 and 128^2."""
+    from mri_raytracer_tpu_torch.apps import volume_app
+    from mri_raytracer_tpu_torch.data import codecs
+    from mri_raytracer_tpu_torch.data.synthetic import synthetic_u8_volume
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.render.volume import (GridVolumeRenderer,
+                                                       load_volume)
+
+    dev = torch.device("cuda")
+    for mode in GRID_MODES:
+        out = work / f"volume_{mode}"
+        run_app("volume", volume_app, ["--synthetic", "--render-mode", mode,
+                                       "--out", out])
+        check_pngs("volume", out, 12, (512, 512))
+    cam = OrbitalCamera(radius=3.0, fov_y=np.radians(72.0))
+    cam.orbit(0.7, 0.0)
+    vol96 = synthetic_u8_volume(VOL96, seed=0)
+    r = GridVolumeRenderer(vol96, 512, 512, device=dev)
+    for mode in GRID_MODES:
+        frame_stats(torch, "volume", f"synthetic 96^3 {mode}, 512^2, 64 "
+                    "steps", lambda: r.render(cam.basis(), step_count=64.0,
+                                              mode=mode), card)
+
+    nii = case / f"{case.name}-t1n.nii.gz"
+    big = load_volume(nii)
+    rb = GridVolumeRenderer(big, 512, 512, device=dev)
+    for steps in (64, 512):
+        for mode in GRID_MODES:
+            out = work / f"volume_nii_{mode}_{steps}"
+            run_app("volume", volume_app, [
+                "--nii", nii, "--render-mode", mode, "--steps", steps,
+                "--frames", 1, "--out", out])
+            check_pngs("volume", out, 1, (512, 512))
+            frame_stats(torch, "volume", f"--nii {BRATS_SHAPE} {mode}, "
+                        f"512^2, {steps} steps",
+                        lambda: rb.render(cam.basis(), step_count=steps,
+                                          mode=mode), card,
+                        profile=mode == "composite" and steps == 64)
+    del rb
+    dims = ",".join(str(d) for d in big.shape)
+    bc4 = work / "t1n.bc4"
+    t0 = time.perf_counter()
+    bc4.write_bytes(codecs.encode_bc4(big.transpose(2, 1, 0)))
+    dec = load_volume(bc4, fmt="bc4", dims=big.shape)
+    log("volume", f"encode_bc4 of the {big.shape} modality in "
+        f"{time.perf_counter() - t0:.1f} s with its decode: "
+        f"{bc4.stat().st_size} bytes, max |decoded - original| "
+        f"{int(np.abs(dec.astype(int) - big).max())} levels")
+    for mode in GRID_MODES:
+        out = work / f"volume_bc4_{mode}"
+        run_app("volume", volume_app, [
+            "--volume", bc4, "--format", "bc4", "--dims", dims,
+            "--render-mode", mode, "--frames", 1, "--out", out])
+        check_pngs("volume", out, 1, (512, 512))
+    rd = GridVolumeRenderer(dec, 512, 512, device=dev)
+    frame_stats(torch, "volume", f"--format bc4 {BRATS_SHAPE} composite, "
+                "512^2, 64 steps", lambda: rd.render(cam.basis()), card,
+                profile=False)
+    del rd
+
+    rc = GridVolumeRenderer(vol96, CPU_RES, CPU_RES, device=dev)
+    rp = GridVolumeRenderer(vol96, CPU_RES, CPU_RES, device="cpu")
+    for mode in GRID_MODES:
+        a = rc.render(cam.basis(), mode=mode)
+        b = rp.render(cam.basis(), mode=mode)
+        card_vs_cpu(torch, "volume", f"96^3 {mode} at {CPU_RES}^2", a, b,
+                    None if mode != "iso" else (a[..., 0] > 0,
+                                                b[..., 0] > 0))
+
+
+def sdf_phase(torch, card: str, work: pathlib.Path, case) -> None:
+    """Phase 15: apps/sdf_app.py at its defaults (512^2, 96 steps, 12
+    frames), its numbers, and the card against the CPU at 128^2."""
+    from mri_raytracer_tpu_torch.apps import sdf_app
+    from mri_raytracer_tpu_torch.ops import sdf
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+
+    out = work / "sdf"
+    run_app("sdf", sdf_app, ["--out", out])
+    check_pngs("sdf", out, 12, (512, 512))
+    cam = OrbitalCamera(radius=2.5, fov_y=np.radians(55.0))
+    cam.orbit(0.5, 0.0)
+    p = sdf.default_sdf_params()
+    frame_stats(torch, "sdf", "sphere, 512^2, 96 steps",
+                lambda: sdf.render_sdf(cam.basis(), p, 512, 512,
+                                       max_steps=96), card)
+    a, b = (sdf.render_sdf(cam.basis(), p, CPU_RES, CPU_RES, max_steps=96,
+                           device=d) for d in ("cuda", "cpu"))
+    card_vs_cpu(torch, "sdf", f"sphere at {CPU_RES}^2", a, b)
+
+
+def noise_phase(torch, card: str, work: pathlib.Path, case) -> None:
+    """Phase 16: apps/noise_app.py at its defaults (512^2, 12 frames) with
+    and without --mouse, its numbers, and the card against the CPU at
+    128^2."""
+    from mri_raytracer_tpu_torch.apps import noise_app
+    from mri_raytracer_tpu_torch.ops.noise2d import render_noise_demo
+
+    for tag, extra in (("plain", []), ("mouse", ["--mouse", "256,200"])):
+        out = work / f"noise_{tag}"
+        run_app("noise", noise_app, extra + ["--out", out])
+        check_pngs("noise", out, 12, (512, 512))
+    for mouse in (None, (256.0, 200.0)):
+        frame_stats(torch, "noise", f"512^2, t 0.2, mouse {mouse}",
+                    lambda: render_noise_demo(512, 512, 0.2, mouse_pos=mouse),
+                    card)
+        a, b = (render_noise_demo(CPU_RES, CPU_RES, 0.2,
+                                  mouse_pos=None if mouse is None else
+                                  (64.0, 50.0), device=d)
+                for d in ("cuda", "cpu"))
+        diff = (a.cpu() - b).abs().amax(-1)
+        card_vs_cpu(torch, "noise", f"{CPU_RES}^2, mouse "
+                    f"{mouse is not None}", a, b,
+                    (diff <= SEC_TOL, torch.ones_like(diff, dtype=bool)))
+
+
+def _write_ply(path: pathlib.Path, verts, tris) -> None:
+    head = ("ply\nformat ascii 1.0\n"
+            f"element vertex {len(verts)}\nproperty float x\n"
+            "property float y\nproperty float z\n"
+            f"element face {len(tris)}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    body = "\n".join(f"{x!r} {y!r} {z!r}" for x, y, z in verts.tolist())
+    faces = "\n".join(f"3 {a} {b} {c}" for a, b, c in tris.tolist())
+    path.write_text(head + body + "\n" + faces + "\n")
+
+
+def mesh_phase(torch, card: str, work: pathlib.Path, case) -> None:
+    """Phase 17: apps/mesh_app.py on its built-in mesh at its defaults;
+    ASCII PLY files of the two occluder meshes (15,312 triangles: brute;
+    83,176: BVH) through --ply at 512^2; each tracer's numbers, the BVH's
+    traversal steps and host syncs a frame; brute against BVH on the
+    card; the card against the CPU at 128^2."""
+    from mri_raytracer_tpu_torch.apps import mesh_app
+    from mri_raytracer_tpu_torch.data import brats
+    from mri_raytracer_tpu_torch.data.synthetic import synthetic_case
+    from mri_raytracer_tpu_torch.render import mesh
+    from mri_raytracer_tpu_torch.render.camera import (OrbitalCamera,
+                                                       camera_rays)
+    from mri_raytracer_tpu_torch.render.hybrid import extract_boundary_mesh
+
+    dev = torch.device("cuda")
+    out = work / "mesh_demo"
+    run_app("mesh", mesh_app, ["--out", out])
+    check_pngs("mesh", out, 12, (512, 512))
+
+    _, seg_small = synthetic_case(SEC_SHAPE, seed=0)
+    seg_big = brats.load_seg_volume(case / f"{case.name}-seg.nii.gz")
+    meshes = {}
+    for name, seg, want_mode in (("small", seg_small, "brute"),
+                                 ("big", seg_big, "bvh")):
+        t0 = time.perf_counter()
+        verts, tris = extract_boundary_mesh(seg > 0)
+        ply = work / f"occluder_{name}.ply"
+        _write_ply(ply, verts, tris)
+        log("mesh", f"occluder of {seg.shape}: {len(tris)} triangles, "
+            f"{len(verts)} vertices, extracted and written as ASCII PLY in "
+            f"{time.perf_counter() - t0:.1f} s")
+        text = run_app("mesh", mesh_app, ["--ply", ply, "--frames", 1,
+                                          "--out", work / f"mesh_{name}"])
+        check_pngs("mesh", work / f"mesh_{name}", 1, (512, 512))
+        if f"tracer={want_mode}" not in text:
+            raise RuntimeError(f"[mesh] {len(tris)} triangles did not "
+                               f"resolve to {want_mode}")
+        meshes[name] = mesh.load_ply_ascii(ply)
+
+    cam = OrbitalCamera(radius=3.0, fov_y=np.radians(55.0))
+    cam.orbit(0.9, 0.0)
+    renderers = {}
+    for name, mode in (("small", "brute"), ("small", "bvh"), ("big", "bvh")):
+        t0 = time.perf_counter()
+        r = mesh.MeshRenderer(*meshes[name], 512, 512, mode=mode, device=dev)
+        label = f"{len(meshes[name][1])} triangles, {mode}, 512^2"
+        log("mesh", f"{label}: renderer built in "
+            f"{time.perf_counter() - t0:.2f} s"
+            + (f" ({r.nodes.shape[0]} BVH nodes)" if mode == "bvh" else "")
+            + (f", chunk {mesh.brute_chunk(512 * 512, dev)} triangles"
+               if mode == "brute" else ""))
+        extra = None
+        if mode == "bvh":
+            extra = lambda r=r: (
+                f"; BVH traversal steps {r.last_stats['steps']}, host syncs "
+                f"{r.last_stats['syncs']}, ray-steps "
+                f"{r.last_stats['ray_steps']} a frame")
+        frame_stats(torch, "mesh", label, lambda r=r: r.render(cam.basis()),
+                    card, extra=extra)
+        renderers[(name, mode)] = r
+
+    # Brute against BVH on the card, on the 15,312-triangle mesh.
+    rb, rv = renderers[("small", "brute")], renderers[("small", "bvh")]
+    ro, rd = camera_rays(cam.basis(dev), 512, 512)
+    tb = mesh.trace_brute(ro, rd, rb.verts, rb.tris)
+    tv = mesh.trace_bvh(ro, rd, rv.nodes, rv.bvh_tris, rv.verts)
+    _hits_agree(torch, "mesh", "brute vs BVH on the card, 15,312 "
+                "triangles at 512^2", tb, tv)
+    del renderers, rb, rv
+
+    small = meshes["small"]
+    for mode in ("brute", "bvh"):
+        traced = [_trace(mesh.MeshRenderer(*small, CPU_RES, CPU_RES,
+                                           mode=mode, device=d), cam.basis())
+                  for d in ("cuda", "cpu")]
+        agree = _hits_agree(torch, "mesh", f"{mode} card vs CPU, "
+                            f"{len(small[1])} triangles at {CPU_RES}^2",
+                            traced[0][2:], traced[1][2:])
+        card_vs_cpu(torch, "mesh", f"{mode} frame at {CPU_RES}^2",
+                    mesh.shade(*traced[0]), mesh.shade(*traced[1]),
+                    (agree, torch.ones_like(agree)))
+
+
+def _trace(r, basis):
+    """(ro, rd, t, n, hit) of a MeshRenderer's frame at ``basis``: its
+    ``render`` is ``shade`` of these."""
+    from mri_raytracer_tpu_torch.render import mesh
+    from mri_raytracer_tpu_torch.render.camera import camera_rays
+
+    ro, rd = camera_rays(basis.to(r.device), r.width, r.height)
+    if r.mode == "brute":
+        return (ro, rd) + mesh.trace_brute(ro, rd, r.verts, r.tris)
+    return (ro, rd) + mesh.trace_bvh(ro, rd, r.nodes, r.bvh_tris, r.verts)
+
+
+def _hits_agree(torch, phase: str, label: str, got, want):
+    """Two tracers' (t, n, hit). A ray's decisions are whether it hits and,
+    where both hit, which triangle: at a tie in t (a ray through an edge
+    two triangles share) brute-force keeps the lowest index and the BVH
+    the first it visits, as in JAX, so the normals may differ there; a
+    normal more than SEC_TOL apart counts as the other triangle. The
+    decisions must agree on SEC_AGREE of the rays, and t within SEC_TOL
+    wherever both hit (a differing normal comes with an equal t). Returns
+    the (card-agnostic, CPU) mask of rays whose decisions agree."""
+    (t1, n1, h1), (t2, n2, h2) = ((x.detach().cpu() for x in r)
+                                  for r in (got, want))
+    both = h1 & h2
+    other = both & ((n1 - n2).abs().amax(-1) > SEC_TOL)
+    agree = (h1 == h2) & ~other
+    share = float(agree.float().mean())
+    et = float((t1 - t2)[both].abs().max()) if bool(both.any()) else 0.0
+    ok = share >= SEC_AGREE and et <= SEC_TOL
+    log(phase, f"{label}: decisions agree on {share:.6f} of {agree.numel()} "
+        f"rays ({int((h1 != h2).sum())} hit flips, {int(other.sum())} ties "
+        f"resolved to another triangle, {int(both.sum())} both hit; bar >= "
+        f"{SEC_AGREE}); max |dt| {et:.3e} where both hit (bar {SEC_TOL})"
+        f"{'' if ok else ' FAILED'}")
+    if not ok:
+        raise RuntimeError(f"[{phase}] {label}: the tracers disagree")
+    return agree
+
+
+def hybrid_phase(torch, card: str, work: pathlib.Path, case) -> None:
+    """Phase 18: apps/hybrid_app.py at its defaults (synthetic 96 x 96 x
+    80, 384^2, 192 steps, shadows and skip on, 12 frames) and on the
+    BraTS-shaped case directory through --case (83,176 occluder
+    triangles) with shadows and skip both on and both off; the renderer's
+    numbers there with shadows and skip each on and off (profiled: both
+    on), the two BVH passes' traversal steps and host syncs a
+    frame, the one-time mesh extraction and BVH build; the card against
+    the CPU at 96 x 96 x 80, 128^2."""
+    from mri_raytracer_tpu_torch.apps import hybrid_app
+    from mri_raytracer_tpu_torch.data import brats
+    from mri_raytracer_tpu_torch.data.synthetic import synthetic_case
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.render.hybrid import HybridRenderer
+
+    dev = torch.device("cuda")
+    out = work / "hybrid_default"
+    run_app("hybrid", hybrid_app, ["--out", out])
+    check_pngs("hybrid", out, 12, (384, 384))
+    combos = ((True, True), (True, False), (False, True), (False, False))
+    for shadows, skip in (combos[0], combos[3]):
+        out = work / f"hybrid_case_{int(shadows)}{int(skip)}"
+        run_app("hybrid", hybrid_app, ["--case", case, "--frames", 1,
+                                       "--out", out]
+                + ([] if shadows else ["--no-shadows"])
+                + ([] if skip else ["--no-skip"]))
+        check_pngs("hybrid", out, 1, (384, 384))
+
+    cam = OrbitalCamera(radius=3.0, theta=np.pi, phi=1.1)
+    cam.orbit(0.6, 0.0)
+    t0 = time.perf_counter()
+    mods, seg = brats.load_case(case)
+    vol = np.stack([brats.percentile_normalize(m) for m in mods]).mean(0)
+    t1 = time.perf_counter()
+    r = HybridRenderer(vol.astype(np.float32), seg > 0, 384, 384,
+                       light_dir=(1.0, 0.6, 0.4), device=dev)
+    torch.cuda.synchronize()
+    log("hybrid", f"{BRATS_SHAPE} case: load {t1 - t0:.1f} s; occluder "
+        f"mesh extraction, BVH build and upload (one-time host cost) "
+        f"{time.perf_counter() - t1:.2f} s: {r.n_tris} triangles, "
+        f"{r.n_nodes} nodes")
+
+    def passes():
+        return "; BVH " + ", ".join(
+            f"{k} pass {v['steps']} steps, {v['syncs']} host syncs, "
+            f"{v['ray_steps']} ray-steps" for k, v in r.last_stats.items())
+
+    for shadows, skip in combos:
+        frame_stats(torch, "hybrid", f"{BRATS_SHAPE}, 384^2, 192 steps, "
+                    f"shadows {shadows}, skip {skip}",
+                    lambda: r.render(cam.basis(), shadows=shadows,
+                                     mesh_skip=skip), card,
+                    extra=passes if (shadows or skip) else None,
+                    profile=shadows and skip)
+    del r
+
+    mods, seg = synthetic_case(SEC_SHAPE, seed=0)
+    vol = np.stack([brats.percentile_normalize(m) for m in mods]) \
+        .mean(0).astype(np.float32)
+    rs = {d: HybridRenderer(vol, seg > 0, CPU_RES, CPU_RES,
+                            light_dir=(1.0, 0.6, 0.4), device=d)
+          for d in ("cuda", "cpu")}
+    for shadows, skip in combos:
+        a, b = (rs[d].render(cam.basis(), shadows=shadows, mesh_skip=skip)
+                for d in ("cuda", "cpu"))
+        dec = ((rs["cuda"].last_stats["shadow"]["hit"],
+                rs["cpu"].last_stats["shadow"]["hit"]) if shadows else None)
+        card_vs_cpu(torch, "hybrid", f"{SEC_SHAPE} at {CPU_RES}^2, shadows "
+                    f"{shadows}, skip {skip}", a, b, dec)
 
 
 def main() -> int:

@@ -9,15 +9,24 @@ intensity, nearest-neighbor GT-seg and INR-pred label overlays with an
 All pixels march in lockstep; the while-loop is a Python loop that stops
 when no ray is active (one device sync per step — this is the reference,
 not the fast path).
+
+The u8 grid renderers (``ops/raymarch_xla.py:153-306``, reference
+``scripts/volumeRendering/volume_render.slang:104-148``) step a fixed
+count between the near and far planes through the [-1,1]^3 cube:
+``render_grid_u8`` accumulates ``a += (1-a) * s * 4/steps`` until 0.995,
+``render_grid_mip`` takes the maximum sample and ``render_grid_iso`` the
+first crossing of an iso value, Phong-shaded. Their loops have a fixed
+trip count and never sync.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from mri_raytracer_tpu_torch.env import resolve_device
+from mri_raytracer_tpu_torch.env import device_floats, resolve_device
 from mri_raytracer_tpu_torch.ops.trilinear import (nearest_sample,
                                                    trilinear_sample_base)
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, camera_rays
@@ -145,3 +154,163 @@ def render_brats(mods, seg: Optional[torch.Tensor],
 
         t = t + dt
     return C
+
+
+# ------------------------------------------------------------ u8 grid volume
+class GridRenderParams(NamedTuple):
+    """The grid renderers' scalars: float32 numbers (numpy scalars, floats
+    or 0-d tensors), read on the host once a frame."""
+
+    step_count: object  # ()
+    near: object  # ()
+    far: object  # ()
+
+
+def _f32(x) -> np.float32:
+    return np.float32(float(x))
+
+
+def _grid_ray_setup(vol_u8, basis: CameraBasis, p: GridRenderParams,
+                    width: int, height: int, device=None):
+    """Shared near/far-plane stepping setup of the grid renderers: the
+    volume in [0, 1], its index extent, the near-plane points and the step
+    vector, on ``device`` (``cuda`` unless given), plus the float32 step
+    count. The scalar math is float32 on the host, as JAX does it on the
+    device."""
+    dev = resolve_device(device)
+    vol = torch.as_tensor(vol_u8, device=dev).to(torch.float32) / 255.0
+    X, Y, Z = vol.shape
+    dims1 = device_floats([X - 1, Y - 1, Z - 1], dev)
+    basis = basis.to(dev)
+    ro, rd_unit = camera_rays(basis, width, height)
+    # The WGSL-style setup scales the *unnormalized* camera-space vector by
+    # near/far; camera_rays normalized rd, so recover it by dividing by the
+    # camera-space z == dot(rd, forward).
+    z_cam = (rd_unit * basis.forward).sum(-1)
+    dir_plane = rd_unit / z_cam[..., None]
+    n = np.maximum(np.float32(0.0), _f32(p.near))
+    f = np.maximum(n, _f32(p.far))
+    steps = np.maximum(np.float32(1.0), _f32(p.step_count))
+    return (vol, dims1, ro + dir_plane * float(n),
+            dir_plane * float(f - n) / float(steps), steps)
+
+
+def _grid_sample(vol, dims1, pos):
+    """Trilinear sample of the [-1,1]^3 grid at world ``pos`` (masked to 0
+    outside the cube), and the inside mask."""
+    inside = torch.all((pos < 1.0) & (pos > -1.0), dim=-1)
+    pidx = 0.5 * (pos + 1.0) * dims1
+    return torch.where(inside, trilinear_sample_base(vol, pidx), 0.0), inside
+
+
+def render_grid_u8(vol_u8, basis: CameraBasis, p: GridRenderParams,
+                   width: int = 512, height: int = 512, max_steps: int = 512,
+                   device=None) -> torch.Tensor:
+    """u8 grid renderer parity (volume_render.slang): the volume occupies
+    [-1,1]^3; rays step uniformly between the near and far *planes* and only
+    accumulate inside the cube. Returns (H, W, 3) grayscale."""
+    vol, dims1, pos, step_vec, steps = _grid_ray_setup(
+        vol_u8, basis, p, width, height, device)
+    count = _f32(p.step_count)
+    gain = float(np.float32(4.0) / steps)
+    accum = torch.zeros((height, width), dtype=torch.float32,
+                        device=vol.device)
+    for i in range(max_steps):
+        # Steps at or past the step count change nothing.
+        if i < count:
+            inside = torch.all((pos < 1.0) & (pos > -1.0), dim=-1)
+            pidx = 0.5 * (pos + 1.0) * dims1
+            s = trilinear_sample_base(vol, pidx) * gain
+            # Gate matches the shader's end-of-loop `accum > 0.995` break:
+            # a step accumulates iff accum entering the step is <= 0.995.
+            do = inside & (accum <= 0.995)
+            accum = torch.where(do, accum + (1.0 - accum) * s, accum)
+        pos = pos + step_vec
+    return accum[..., None].repeat(1, 1, 3)
+
+
+def render_grid_mip(vol_u8, basis: CameraBasis, p: GridRenderParams,
+                    width: int = 512, height: int = 512, max_steps: int = 512,
+                    device=None) -> torch.Tensor:
+    """Maximum-intensity projection of the u8 grid: max of trilinear
+    samples along each ray between the near/far planes. Same camera and
+    stepping setup as ``render_grid_u8``; order-independent, so no early
+    termination."""
+    vol, dims1, pos, step_vec, _ = _grid_ray_setup(
+        vol_u8, basis, p, width, height, device)
+    count = _f32(p.step_count)
+    best = torch.zeros((height, width), dtype=torch.float32,
+                       device=vol.device)
+    for i in range(max_steps):
+        if i < count:
+            s, _ = _grid_sample(vol, dims1, pos)
+            best = torch.maximum(best, s)
+        pos = pos + step_vec
+    return best[..., None].repeat(1, 1, 3)
+
+
+def render_grid_iso(vol_u8, basis: CameraBasis, p: GridRenderParams,
+                    width: int = 512, height: int = 512, max_steps: int = 512,
+                    iso: float = 0.25, light_dir=(0.4, 0.6, 0.7),
+                    device=None) -> torch.Tensor:
+    """First-crossing iso-surface render with gradient Phong shading.
+
+    Fixed-trip masked march: the first step whose trilinear sample crosses
+    ``iso`` records a linearly refined hit position; the surface normal is
+    the central-difference intensity gradient at the hit, shaded with
+    Lambert + Blinn-Phong against a fixed light plus a headlight ambient
+    term."""
+    vol, dims1, world_near, step_vec, _ = _grid_ray_setup(
+        vol_u8, basis, p, width, height, device)
+    dev = vol.device
+    count = _f32(p.step_count)
+    iso_f = float(np.float32(iso))
+    H, W = height, width
+    found = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    hit = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+    prev_s = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    pos = world_near
+    for i in range(max_steps):
+        if i < count:
+            s, inside = _grid_sample(vol, dims1, pos)
+            cross = inside & ~found & (prev_s < iso_f) & (s >= iso_f)
+            # Linear refinement between the previous and current step. At
+            # i == 0 there is no previous sample (prev_s is the 0 init): the
+            # segment start is the near-plane point itself, so the refined
+            # hit never lands in front of the near clip.
+            seg_start = pos if i == 0 else pos - step_vec
+            frac = torch.clamp((iso_f - prev_s)
+                               / torch.clamp(s - prev_s, min=1e-6), 0.0, 1.0)
+            hit_new = seg_start + frac[..., None] * (pos - seg_start)
+            found = found | cross
+            hit = torch.where(cross[..., None], hit_new, hit)
+            prev_s = s
+        pos = pos + step_vec
+
+    # Central-difference gradient at the hit (2-voxel stencil in world
+    # units of the largest axis).
+    eps = float(np.float32(2.0) / np.float32(max(vol.shape) - 1))
+    grads = []
+    for a in range(3):
+        d = torch.zeros(3, dtype=torch.float32, device=dev)
+        d[a] = eps
+        sp, _ = _grid_sample(vol, dims1, hit + d)
+        sm, _ = _grid_sample(vol, dims1, hit - d)
+        grads.append(sp - sm)
+    g = torch.stack(grads, -1)
+    n_vec = -g / torch.clamp(_norm(g), min=1e-6)
+    l = device_floats(np.asarray(light_dir, np.float32), dev)
+    l = l / _norm(l)
+    _, rd_unit = camera_rays(basis.to(dev), width, height)
+    v = -rd_unit
+    h = (l + v) / torch.clamp(_norm(l + v), min=1e-6)
+    diff = torch.clamp((n_vec * l).sum(-1), min=0.0)
+    spec = torch.clamp((n_vec * h).sum(-1), min=0.0) ** 32
+    shade = torch.clamp(0.12 + 0.75 * diff + 0.35 * spec, 0.0, 1.0)
+    out = torch.where(found, shade, 0.0)
+    return out[..., None].repeat(1, 1, 3)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(x, axis=-1, keepdims=True)``."""
+    return torch.linalg.vector_norm(x, dim=-1, keepdim=True)

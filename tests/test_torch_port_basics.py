@@ -83,6 +83,18 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.ops.roi_policy",
     "mri_raytracer_tpu_torch.eval.roi_protocol",
     "mri_raytracer_tpu_torch.apps.roi_policy_eval",
+    "mri_raytracer_tpu_torch.data.codecs",
+    "mri_raytracer_tpu_torch.render.volume",
+    "mri_raytracer_tpu_torch.ops.sdf",
+    "mri_raytracer_tpu_torch.ops.noise2d",
+    "mri_raytracer_tpu_torch.render.mesh",
+    "mri_raytracer_tpu_torch.render.hybrid",
+    "mri_raytracer_tpu_torch.io.gif",
+    "mri_raytracer_tpu_torch.apps.volume_app",
+    "mri_raytracer_tpu_torch.apps.sdf_app",
+    "mri_raytracer_tpu_torch.apps.noise_app",
+    "mri_raytracer_tpu_torch.apps.mesh_app",
+    "mri_raytracer_tpu_torch.apps.hybrid_app",
 ]
 
 
