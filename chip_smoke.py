@@ -16,7 +16,12 @@ the field overlay K1b, K2); the frame's FLOP/MFU accounting of
 executed-plane counter (K1c); and the two BraTS front ends, the viewer CLI
 and the HTTP frame server, on a 256^3 NIfTI case written to disk; and
 INR training (``train_inr``) at the default configuration, whose trained
-field the neural frame then renders; and differentiable rendering with
+field the neural frame then renders; the optimizer zoo's optax.contrib
+optimizers through the same trainer; the U-Net baseline (``train_unet``
+with its native-loaded cases, distillation into an implicit MLP and the
+nnU-Net dataset conversion), which runs no kernel of the port (the JAX
+package's convolutions are XLA's, the port's cuDNN's); and differentiable
+rendering with
 the two fits of an INR from rendered views (``train/fit_views.py``); and
 the ROI policy renderer with its evaluation protocol and training at
 1920 x 1080 (``ops/roi_policy.py``, ``eval/roi_protocol.py``), which runs
@@ -86,6 +91,31 @@ either. Phases:
               fused vs scan >= 40 dB, K1b launches = TRAIN_FRAMES); and a
               profile of PROFILE_STEPS steady steps (device operations,
               busy time and idle share per step)
+ 11a. optim   on the same cases, each optax.contrib optimizer of the zoo
+              (muon, prodigy, dadapt_adamw, schedule_free_adamw,
+              momo_adam) through train_inr at the default TrainConfig()
+              with only the optimizer changed, OPTIM_STEPS steps: ms a
+              step (CUDA events), the loss at the first and last log
+              (finite; whether it fell is reported); each one's first
+              OPTIM_UPDATES updates on the card against the CPU's
+              (<= OPTIM_TOL); sophia raises optax's ValueError
+ 11b. unet    the native loader (runtime/mri_io.cpp built by g++ into
+              build/native/): its build, RAMCache(use_native=True) on the
+              cases, one case against the Python loader (seg bit-equal,
+              the z-score bit-equal to the library's arithmetic in NumPy);
+              train_unet(base 32, batch 8, 3 epochs, lr 1e-3) on the 4
+              train cases with the validation case: slices, steps, ms a
+              step (CUDA events, median after UNET_SKIP), images/s, GFLOP
+              a step from the shapes, TFLOP/s, peak memory; the loss
+              finite and falling, the best val Dice above the initial
+              weights', unet_best.npz reloading with bit-equal logits,
+              the trained logits on the card against the CPU
+              (<= UNET_CPU_TOL); distill_to_implicit at its defaults on
+              the U-Net's label volume of the validation case (loss
+              falls, accuracy > DISTILL_ACC); a profile of
+              UNET_PROFILE_STEPS steps; prepare_brats_dataset on the five
+              cases (20 image links, labels in {0..3}); K1 and K2 launch
+              no time in 11a-11b
  12. fit      differentiable rendering and fit-from-views: each
               autograd.Function (trilinear_sample, composite_fronttoback,
               isosurface_intersect) against autograd through its plain
@@ -205,6 +235,31 @@ RESUME_STEPS = 40
 RESUME_TOL = 1e-5
 TRAIN_FRAMES = 5
 PROFILE_STEPS = 20
+# The [optim] phase: the optax.contrib optimizers of the zoo through
+# train_inr at the default TrainConfig() with only the optimizer changed,
+# OPTIM_STEPS steps each (of its 2,000), timed after OPTIM_SKIP; the card's
+# first OPTIM_UPDATES updates against the CPU's on a seeded gradient
+# sequence, max |difference| over max |value| per parameter <= OPTIM_TOL.
+OPTIMS = ("muon", "prodigy", "dadapt_adamw", "schedule_free_adamw",
+          "momo_adam")
+OPTIM_STEPS = 200
+OPTIM_SKIP = 10
+OPTIM_UPDATES = 5
+OPTIM_TOL = 1e-4
+# The [unet] phase: the reference's U-Net baseline (base 32, batch 8, 3
+# epochs, lr 1e-3) on [train]'s cases; per-step times after UNET_SKIP;
+# UNET_PROFILE_STEPS profiled steps; the trained weights' logits on one
+# batch, card against CPU: max |difference| <= UNET_CPU_TOL x max |logit|
+# (float32 convolutions on both); distillation at its defaults, accuracy
+# above DISTILL_ACC (tests/test_unet_nnunet.py's bar).
+UNET_BASE = 32
+UNET_BATCH = 8
+UNET_EPOCHS = 3
+UNET_LR = 1e-3
+UNET_SKIP = 10
+UNET_PROFILE_STEPS = 5
+UNET_CPU_TOL = 1e-4
+DISTILL_ACC = 0.5
 # The [fit] phase: docs/FIT_FROM_VIEWS_shearwarp.md's and
 # docs/FIT_FROM_VIEWS.md's configurations (scripts/fit_from_views.py), the
 # PSNR gate of both (train and held-out means), the steps left out of the
@@ -741,8 +796,11 @@ def run(torch) -> int:
     # ------------------------------------------------------ 10. front ends
     front_end_phase(torch, card)
 
-    # ------------------------------------------------------- 11. training
-    train_phase(torch, card)
+    # ----------------------------------- 11. training, optimizers, U-Net
+    with training_cases(card) as cases:
+        train_phase(torch, card, cases)
+        optim_phase(torch, card, cases)
+        unet_phase(torch, card, cases)
 
     # ------------------------------------------------------------ 12. fit
     fit_phase(torch, card)
@@ -1320,24 +1378,12 @@ def step_hook(hook):
     return patched(steps, "build_train_step", wrap)
 
 
-def train_phase(torch, card: str) -> None:
-    """Phase 11: INR training through ``train_inr`` at the full default
-    ``TrainConfig()`` on TRAIN_CASES synthetic BraTS-2023-size cases, its
-    checks (loss, Dice, checkpoints, exact resume) and the trained field
-    rendered by the neural frame."""
-    import copy
-
-    from mri_raytracer_tpu_torch import convert
-    from mri_raytracer_tpu_torch.config import ModelConfig, TrainConfig
-    from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+@contextlib.contextmanager
+def training_cases(card: str):
+    """TRAIN_CASES synthetic cases of TRAIN_SHAPE (seed 0, BraTS-2023 NIfTI
+    layout) in a work directory under build/, removed after: yields (work
+    directory, data root). [train], [optim] and [unet] share them."""
     from mri_raytracer_tpu_torch.data.synthetic import write_synthetic_dataset
-    from mri_raytracer_tpu_torch.eval import inference, metrics
-    from mri_raytracer_tpu_torch.io import checkpoint as ckpt
-    from mri_raytracer_tpu_torch.ops import composite
-    from mri_raytracer_tpu_torch.ops import neural_march as nm
-    from mri_raytracer_tpu_torch.render import params as rp
-    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
-    from mri_raytracer_tpu_torch.train import engine
 
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
@@ -1349,228 +1395,637 @@ def train_phase(torch, card: str) -> None:
         log("train", f"wrote {TRAIN_CASES} synthetic cases {TRAIN_SHAPE} "
             f"(seed 0, BraTS-2023 NIfTI layout) in "
             f"{time.perf_counter() - t0:.1f} s wall, on {card}")
+        yield tmp, data
 
-        def config(out: str) -> TrainConfig:
-            c = TrainConfig()
-            c.data.data_root = str(data)
-            c.data.case_limit = TRAIN_CASES
-            c.data.num_folds = TRAIN_CASES
-            c.data.fold_index = 0
-            c.out_dir = str(tmp / out)
-            return c
 
-        # The main run, timed by phase, with CUDA events at the log steps.
-        cfg = config("run")
-        walls = {}
+def train_config(tmp: pathlib.Path, data: pathlib.Path, out: str):
+    """The default ``TrainConfig()`` on the TRAIN_CASES cases: 4 train, 1
+    validation (fold 0), writing under ``tmp / out``."""
+    from mri_raytracer_tpu_torch.config import TrainConfig
 
-        def timed(fn):
-            def call(*a, **kw):
-                t = time.perf_counter()
-                try:
-                    return fn(*a, **kw)
-                finally:
-                    walls[fn.__name__] = time.perf_counter() - t
+    c = TrainConfig()
+    c.data.data_root = str(data)
+    c.data.case_limit = TRAIN_CASES
+    c.data.num_folds = TRAIN_CASES
+    c.data.fold_index = 0
+    c.out_dir = str(tmp / out)
+    return c
 
-            return call
 
-        events, live = {}, {}
+def train_phase(torch, card: str, cases=None) -> None:
+    """Phase 11: INR training through ``train_inr`` at the full default
+    ``TrainConfig()`` on TRAIN_CASES synthetic BraTS-2023-size cases, its
+    checks (loss, Dice, checkpoints, exact resume) and the trained field
+    rendered by the neural frame. ``cases`` is ``training_cases``'s
+    (work directory, data root); without it the phase writes its own."""
+    import copy
 
-        def main_hook(step, args):
-            params, step_idx = args[0], args[5]
-            if not live:
-                live["init"] = copy.deepcopy(params)
-            live["step"], live["args"] = step, args
+    from mri_raytracer_tpu_torch import convert
+    from mri_raytracer_tpu_torch.config import ModelConfig
+    from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+    from mri_raytracer_tpu_torch.eval import inference, metrics
+    from mri_raytracer_tpu_torch.io import checkpoint as ckpt
+    from mri_raytracer_tpu_torch.ops import composite
+    from mri_raytracer_tpu_torch.ops import neural_march as nm
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.train import engine
+
+    if cases is None:
+        with training_cases(card) as cases:
+            return train_phase(torch, card, cases)
+    tmp, data = cases
+
+    def config(out: str):
+        return train_config(tmp, data, out)
+
+    # The main run, timed by phase, with CUDA events at the log steps.
+    cfg = config("run")
+    walls = {}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                walls[fn.__name__] = time.perf_counter() - t
+
+        return call
+
+    events, live = {}, {}
+
+    def main_hook(step, args):
+        params, step_idx = args[0], args[5]
+        if not live:
+            live["init"] = copy.deepcopy(params)
+        live["step"], live["args"] = step, args
+        m = step(*args)
+        if step_idx % cfg.log_every == 0:
+            events[step_idx] = torch.cuda.Event(enable_timing=True)
+            events[step_idx].record()
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with patched(engine.cache_mod, "build_train_val_caches", timed), \
+            patched(engine.inference, "evaluate_cases", timed), \
+            step_hook(main_hook):
+        state = engine.train_inr(cfg)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model, params = state["model"], state["params"]
+    hist = state["history"]
+    log("train", f"TrainConfig() defaults: {cfg.model.kind} "
+        f"{cfg.model.hidden_dims}, {cfg.model.fourier_freqs} harmonics, "
+        f"{cfg.train_steps} steps, global batch {cfg.global_batch} = "
+        f"{cfg.global_batch // cfg.micro_batch} x micro {cfg.micro_batch}"
+        f", {cfg.optim.optimizer} lr {cfg.optim.lr} "
+        f"{cfg.optim.schedule}, clip {cfg.optim.grad_clip}, sampler "
+        f"{cfg.data.sampler}, pool {cfg.data.pool_size}; "
+        f"{state['train_cache'].n_cases} train + "
+        f"{state['val_cache'].n_cases} val cases")
+    log("train", f"wall: train_inr {wall:.1f} s = cache load "
+        f"{walls['build_train_val_caches']:.1f} s + loop "
+        f"{state['train_time_sec']:.1f} s + final eval "
+        f"{walls['evaluate_cases']:.1f} s + the rest (pool, checkpoints"
+        f", logs); peak device memory {peak / 2**20:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated), of which "
+        f"{held / 2**20:.1f} MiB held by earlier phases: "
+        f"{(peak - held) / 2**20:.1f} MiB for training, on {card}")
+    per_step = []
+    marks = sorted(events)
+    for a, b in zip(marks, marks[1:]):
+        if a >= 100:
+            per_step.append(events[a].elapsed_time(events[b]) / (b - a))
+    ms = float(np.median(per_step))
+    log("train", f"ms per step over steps 101-{cfg.train_steps} (CUDA "
+        f"events at the log steps, {len(per_step)} windows of "
+        f"{cfg.log_every}): median {ms:.4f}, mean "
+        f"{float(np.mean(per_step)):.4f}, min {min(per_step):.4f}, max "
+        f"{max(per_step):.4f}; {cfg.global_batch / ms * 1e3:.0f} "
+        f"voxels/s at the median, on {card}")
+    losses = [h["loss"] for h in hist]
+    log("train", f"logged loss: step {hist[0]['step']} {losses[0]:.4g}"
+        f", step {hist[len(hist) // 2]['step']} "
+        f"{losses[len(hist) // 2]:.4g}, step {hist[-1]['step']} "
+        f"{losses[-1]:.4g} ({len(hist)} log steps)")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("a logged loss is not finite")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise RuntimeError(f"the loss did not halve: {losses[0]:.4f} -> "
+                           f"{losses[-1]:.4f}")
+
+    # Validation: the trained network against itself at its initial
+    # weights, on the same case, by evaluate_single_case's mean Dice.
+    val = state["val_cache"].get(0)
+    agg = state["eval"]
+    pred0, true0 = inference.predict_volume(model, live["init"], val)
+    s0 = metrics.dice_score(pred0, true0, cfg.model.num_classes)
+    valid0 = [v for v in s0.values() if not np.isnan(v)]
+    dice0 = float(np.mean(valid0)) if valid0 else 0.0
+    nc = cfg.model.num_classes
+    log("train", f"val {val['name']}: mean Dice {agg['mean_dice'][0]:.4f}"
+        f" (initial weights {dice0:.4f}); per class "
+        + ", ".join(f"{c}: {agg[f'dice_class_{c}'][0]:.4f}"
+                    for c in range(nc))
+        + "; Hausdorff " + ", ".join(
+            f"{c}: {agg[f'hd_class_{c}'][0]:.2f}" for c in range(nc))
+        + f"; coverage Dice {agg['coverage_dice'][0]:.4f}, on {card}")
+    if not agg["mean_dice"][0] > dice0:
+        raise RuntimeError("validation Dice did not beat the initial "
+                           "weights'")
+
+    # The checkpoints: the object format through model_load, bit-equal
+    # logits; the reference's flat format through load_params.
+    tree, info = ckpt.model_load(state["checkpoint"])
+    m2, p2 = convert.inr_params_from_numpy(
+        tree, ModelConfig.from_info(info), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    coords = torch.rand((8192, 3), generator=g, device="cuda") * 2 - 1
+    intens = torch.randn((8192, 4), generator=g, device="cuda")
+    with torch.no_grad():
+        same = torch.equal(model.apply(params, coords, intens),
+                           m2.apply(p2, coords, intens))
+    flat = ckpt.load_params(pathlib.Path(cfg.out_dir) /
+                            f"{cfg.run_name}_flat.npz")
+    flat_ok = all(np.array_equal(a[k], b[k]) for a, b in zip(
+        flat, ckpt.params_to_numpy(params)) for k in ("W", "b"))
+    log("train", f"final checkpoint {pathlib.Path(state['checkpoint']).name}"
+        f" reloads with bit-equal logits: {same}; flat format "
+        f"({len(flat)} layers) equal: {flat_ok}")
+    if not (same and flat_ok):
+        raise RuntimeError("the checkpoint does not reload")
+
+    # Exact resume on the card: 40 steps straight against 20, a stop,
+    # a resume from the train state and 20 more (each run ends at its
+    # last step, before its final eval).
+    snaps = {}
+
+    def stop_after(n, key):
+        def hook(step, args):
+            if args[5] > n:
+                raise _Stop
             m = step(*args)
-            if step_idx % cfg.log_every == 0:
-                events[step_idx] = torch.cuda.Event(enable_timing=True)
-                events[step_idx].record()
+            if args[5] == n and key:
+                snaps[key] = copy.deepcopy(args[0])
+                raise _Stop
             return m
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
+        return hook
+
+    t0 = time.perf_counter()
+    for out, n, key, every, resume in (
+            ("straight", RESUME_STEPS, "straight", 0, None),
+            ("first", RESUME_STEPS // 2, None, RESUME_STEPS // 2, None),
+            ("resumed", RESUME_STEPS, "resumed", 0,
+             tmp / "first" / "inr_trainstate.npz")):
+        c = config(out)
+        c.train_steps = RESUME_STEPS
+        c.checkpoint_every = every
+        c.resume_from = None if resume is None else str(resume)
+        with step_hook(stop_after(n, key)):
+            try:
+                engine.train_inr(c)
+            except _Stop:
+                pass
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            snaps["straight"].parameters(),
+            snaps["resumed"].parameters()))
+    log("train", f"exact resume: {RESUME_STEPS} steps straight vs "
+        f"{RESUME_STEPS // 2} + resume + {RESUME_STEPS // 2}: max abs "
+        f"param difference {diff:.3e} (bound {RESUME_TOL}), "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    if not diff <= RESUME_TOL:
+        raise RuntimeError("exact resume differs")
+
+    # The trained field through the neural frame on the validation case.
+    disp = np.stack([percentile_normalize(m) for m in val["mods"]])
+    seg = val["seg"].astype(np.int32)
+    renderer = nm.NeuralBratsRenderer(disp, val["mods"], seg, model,
+                                      params, width=WIDTH, height=HEIGHT)
+    if renderer.backend != "fused":
+        raise RuntimeError(f"backend 'auto' resolved to "
+                           f"{renderer.backend}")
+    p = rp.default_render_params(TRAIN_SHAPE, show_seg=True,
+                                 show_pred=True)
+    radius = rp.default_camera_radius(p, TRAIN_SHAPE)
+    cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
+    q, fr, field = fused_vs_scan(renderer, cam.basis(), p)
+    counts = torch.bincount(field.reshape(-1).long(),
+                            minlength=nc).tolist()
+    log("train", f"trained field at the start pose: O={fr.out_res}, "
+        f"field {tuple(field.shape)}, label counts {counts}; fused vs "
+        f"scan {q:.2f} dB (>= {PSNR_MIN_DB})")
+    if not q >= PSNR_MIN_DB:
+        raise RuntimeError(f"trained field: fused vs scan {q:.2f} dB")
+    torch.cuda.synchronize()
+    composite.composite_planes.field_launches = 0
+    for _ in range(TRAIN_FRAMES):
+        cam.orbit(0.03, 0.01)
+        img = renderer.render(cam.basis(), p)
+    torch.cuda.synchronize()
+    k1b = composite.composite_planes.field_launches
+    log("train", f"{TRAIN_FRAMES} orbit frames of the trained field: "
+        f"K1b launches {k1b}")
+    if k1b != TRAIN_FRAMES or not bool(torch.isfinite(img).all()):
+        raise RuntimeError("trained-field frames failed")
+
+    # 20 steady steps of the main run's own step, under the profiler.
+    step, args = live["step"], live["args"]
+    by_name = device_activity(torch, lambda: step(*args), PROFILE_STEPS)
+    if not by_name:
+        log("train", "profile: device time not measured: the profiler "
+            "saw no device activity")
+    else:
+        busy = sum(us for _, us in by_name.values()) / 1e3 / PROFILE_STEPS
+        ops = sum(n for n, _ in by_name.values()) / PROFILE_STEPS
+        log("train", f"profile per step over {PROFILE_STEPS} steps: "
+            f"{ops:.1f} device operations, device busy {busy:.4f} ms; "
+            f"idle share of the {ms:.4f} ms step {1.0 - busy / ms:.3f}, "
+            f"on {card}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+        for name, (n, us) in top:
+            log("train", f"profile {us / 1e3 / PROFILE_STEPS:8.4f} ms/step"
+                f" {n / PROFILE_STEPS:6.1f}x  {name[:90]}")
+
+
+def optim_phase(torch, card: str, cases) -> None:
+    """Phase 11a: each optax.contrib optimizer of the zoo through
+    ``train_inr`` at the default ``TrainConfig()`` with only the optimizer
+    changed, OPTIM_STEPS steps (ended through the step hook, before the
+    final eval; no periodic checkpoints); the card's first OPTIM_UPDATES
+    updates against the CPU's; sophia's ValueError."""
+    import copy
+
+    from mri_raytracer_tpu_torch.config import ModelConfig, OptimConfig
+    from mri_raytracer_tpu_torch.io import native
+    from mri_raytracer_tpu_torch.models.api import build_model
+    from mri_raytracer_tpu_torch.ops import composite, warp
+    from mri_raytracer_tpu_torch.train import engine, optimizers
+
+    tmp, data = cases
+    t_phase = time.perf_counter()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+    loaded = {}
+
+    def load_once(fn):
+        def call(*a, **kw):
+            if "caches" not in loaded:
+                t = time.perf_counter()
+                loaded["caches"] = fn(*a, **kw)
+                loaded["s"] = time.perf_counter() - t
+            return loaded["caches"]
+
+        return call
+
+    for name in OPTIMS:
+        cfg = train_config(tmp, data, f"optim_{name}")
+        cfg.optim.optimizer = name
+        cfg.checkpoint_every = 0
+        marks, losses = {}, {}
+
+        def hook(step, args):
+            i = args[5]
+            if i > OPTIM_STEPS:
+                raise _Stop
+            m = step(*args)
+            if i % cfg.log_every == 0 or i == 1:
+                losses[i] = m.loss
+            if i in (OPTIM_SKIP, OPTIM_STEPS):
+                marks[i] = torch.cuda.Event(enable_timing=True)
+                marks[i].record()
+            return m
+
         t0 = time.perf_counter()
-        with patched(engine.cache_mod, "build_train_val_caches", timed), \
-                patched(engine.inference, "evaluate_cases", timed), \
-                step_hook(main_hook):
-            state = engine.train_inr(cfg)
+        with patched(engine.cache_mod, "build_train_val_caches", load_once), \
+                step_hook(hook):
+            try:
+                engine.train_inr(cfg)
+            except _Stop:
+                pass
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        model, params = state["model"], state["params"]
-        hist = state["history"]
-        log("train", f"TrainConfig() defaults: {cfg.model.kind} "
-            f"{cfg.model.hidden_dims}, {cfg.model.fourier_freqs} harmonics, "
-            f"{cfg.train_steps} steps, global batch {cfg.global_batch} = "
-            f"{cfg.global_batch // cfg.micro_batch} x micro {cfg.micro_batch}"
-            f", {cfg.optim.optimizer} lr {cfg.optim.lr} "
-            f"{cfg.optim.schedule}, clip {cfg.optim.grad_clip}, sampler "
-            f"{cfg.data.sampler}, pool {cfg.data.pool_size}; "
-            f"{state['train_cache'].n_cases} train + "
-            f"{state['val_cache'].n_cases} val cases")
-        log("train", f"wall: train_inr {wall:.1f} s = cache load "
-            f"{walls['build_train_val_caches']:.1f} s + loop "
-            f"{state['train_time_sec']:.1f} s + final eval "
-            f"{walls['evaluate_cases']:.1f} s + the rest (pool, checkpoints"
-            f", logs); peak device memory {peak / 2**20:.1f} MiB "
-            f"(torch.cuda.max_memory_allocated), of which "
-            f"{held / 2**20:.1f} MiB held by earlier phases: "
-            f"{(peak - held) / 2**20:.1f} MiB for training, on {card}")
-        per_step = []
-        marks = sorted(events)
-        for a, b in zip(marks, marks[1:]):
-            if a >= 100:
-                per_step.append(events[a].elapsed_time(events[b]) / (b - a))
-        ms = float(np.median(per_step))
-        log("train", f"ms per step over steps 101-{cfg.train_steps} (CUDA "
-            f"events at the log steps, {len(per_step)} windows of "
-            f"{cfg.log_every}): median {ms:.4f}, mean "
-            f"{float(np.mean(per_step)):.4f}, min {min(per_step):.4f}, max "
-            f"{max(per_step):.4f}; {cfg.global_batch / ms * 1e3:.0f} "
-            f"voxels/s at the median, on {card}")
-        losses = [h["loss"] for h in hist]
-        log("train", f"logged loss: step {hist[0]['step']} {losses[0]:.4g}"
-            f", step {hist[len(hist) // 2]['step']} "
-            f"{losses[len(hist) // 2]:.4g}, step {hist[-1]['step']} "
-            f"{losses[-1]:.4g} ({len(hist)} log steps)")
-        if not all(np.isfinite(losses)):
-            raise RuntimeError("a logged loss is not finite")
-        if not losses[-1] < 0.5 * losses[0]:
-            raise RuntimeError(f"the loss did not halve: {losses[0]:.4f} -> "
-                               f"{losses[-1]:.4f}")
+        ms = marks[OPTIM_SKIP].elapsed_time(marks[OPTIM_STEPS]) / (
+            OPTIM_STEPS - OPTIM_SKIP)
+        logged = {k: float(v) for k, v in sorted(losses.items())}
+        first, last = logged[min(logged)], logged[max(logged)]
+        log("optim", f"{name}: {OPTIM_STEPS} steps of TrainConfig() "
+            f"({cfg.model.kind} {cfg.model.hidden_dims}, global batch "
+            f"{cfg.global_batch}), {ms:.4f} ms a step over steps "
+            f"{OPTIM_SKIP + 1}-{OPTIM_STEPS} (CUDA events), loss step "
+            f"{min(logged)} {first:.4g} -> step {max(logged)} {last:.4g} "
+            f"({'fell' if last < first else 'did not fall'}), run wall "
+            f"{wall:.1f} s, on {card}")
+        if not all(np.isfinite(list(logged.values()))):
+            raise RuntimeError(f"[optim] {name}: a logged loss is not "
+                               "finite")
+    log("optim", f"cache load {loaded['s']:.1f} s (RAMCache, native "
+        f"loader {'on' if native.available() else 'off'}), once for the "
+        "five runs")
 
-        # Validation: the trained network against itself at its initial
-        # weights, on the same case, by evaluate_single_case's mean Dice.
-        val = state["val_cache"].get(0)
-        agg = state["eval"]
-        pred0, true0 = inference.predict_volume(model, live["init"], val)
-        s0 = metrics.dice_score(pred0, true0, cfg.model.num_classes)
-        valid0 = [v for v in s0.values() if not np.isnan(v)]
-        dice0 = float(np.mean(valid0)) if valid0 else 0.0
-        nc = cfg.model.num_classes
-        log("train", f"val {val['name']}: mean Dice {agg['mean_dice'][0]:.4f}"
-            f" (initial weights {dice0:.4f}); per class "
-            + ", ".join(f"{c}: {agg[f'dice_class_{c}'][0]:.4f}"
-                        for c in range(nc))
-            + "; Hausdorff " + ", ".join(
-                f"{c}: {agg[f'hd_class_{c}'][0]:.2f}" for c in range(nc))
-            + f"; coverage Dice {agg['coverage_dice'][0]:.4f}, on {card}")
-        if not agg["mean_dice"][0] > dice0:
-            raise RuntimeError("validation Dice did not beat the initial "
-                               "weights'")
+    # The card's first updates against the CPU's, from the same weights
+    # (the default INR) on the same seeded gradients and loss values.
+    model = build_model(ModelConfig(), 4)
+    init = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    shapes = [p.shape for p in init.parameters()]
+    seq = [([rng.normal(0, 0.05, s).astype(np.float32) for s in shapes],
+            np.float32(rng.uniform(0.5, 2.0))) for _ in range(OPTIM_UPDATES)]
+    for name in OPTIMS:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = copy.deepcopy(init).to(dev)
+            opt = optimizers.build_optimizer(OptimConfig(optimizer=name),
+                                             2000, params)
+            for grads, value in seq:
+                for p, g in zip(params.parameters(), grads):
+                    p.grad = torch.from_numpy(g).to(dev)
+                opt.step(value=torch.tensor(value, device=dev))
+            runs[dev] = [p.detach().cpu() for p in params.parameters()]
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(runs["cuda"], runs["cpu"]))
+        log("optim", f"{name}: card vs CPU after {OPTIM_UPDATES} updates: "
+            f"max |diff| / max |value| {err:.3e} (bar {OPTIM_TOL})")
+        if not err <= OPTIM_TOL:
+            raise RuntimeError(f"[optim] {name}: the card's updates differ "
+                               "from the CPU's")
+    try:
+        optimizers.build_optimizer(OptimConfig(optimizer="sophia"), 10,
+                                   init)
+        raise RuntimeError("[optim] sophia built")
+    except ValueError as e:
+        log("optim", f"sophia raises ValueError, as JAX's train step: {e}")
+    k12 = kernel_launches(composite, warp)
+    log("optim", f"K1, K2 launches {k12} (want (0, 0)); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if k12 != (0, 0):
+        raise RuntimeError(f"[optim] K1/K2 launched {k12} times")
 
-        # The checkpoints: the object format through model_load, bit-equal
-        # logits; the reference's flat format through load_params.
-        tree, info = ckpt.model_load(state["checkpoint"])
-        m2, p2 = convert.inr_params_from_numpy(
-            tree, ModelConfig.from_info(info), device="cuda")
-        g = torch.Generator(device="cuda").manual_seed(9)
-        coords = torch.rand((8192, 3), generator=g, device="cuda") * 2 - 1
-        intens = torch.randn((8192, 4), generator=g, device="cuda")
-        with torch.no_grad():
-            same = torch.equal(model.apply(params, coords, intens),
-                               m2.apply(p2, coords, intens))
-        flat = ckpt.load_params(pathlib.Path(cfg.out_dir) /
-                                f"{cfg.run_name}_flat.npz")
-        flat_ok = all(np.array_equal(a[k], b[k]) for a, b in zip(
-            flat, ckpt.params_to_numpy(params)) for k in ("W", "b"))
-        log("train", f"final checkpoint {pathlib.Path(state['checkpoint']).name}"
-            f" reloads with bit-equal logits: {same}; flat format "
-            f"({len(flat)} layers) equal: {flat_ok}")
-        if not (same and flat_ok):
-            raise RuntimeError("the checkpoint does not reload")
 
-        # Exact resume on the card: 40 steps straight against 20, a stop,
-        # a resume from the train state and 20 more (each run ends at its
-        # last step, before its final eval).
-        snaps = {}
+def unet_flops(base: int, in_ch: int, n_classes: int, H: int, W: int
+               ) -> float:
+    """Forward FLOPs of one image through ``UNet2D`` (2 per multiply-add
+    of every convolution, transposed convolution and the head; pools,
+    norms, ReLUs and concatenations left out)."""
+    b = base
+    convs = []  # (c_in, c_out, kernel area, output pixels)
+    levels = [(in_ch, b, 1), (b, 2 * b, 2), (2 * b, 4 * b, 4),
+              (4 * b, 8 * b, 8), (8 * b, 4 * b, 4), (4 * b, 2 * b, 2),
+              (2 * b, b, 1)]
+    for ci, co, s in levels:  # the DoubleConvs: d1 d2 d3 b c3 c2 c1
+        px = (H // s) * (W // s)
+        convs += [(ci, co, 9, px), (co, co, 9, px)]
+    for ci, co, s in ((8 * b, 4 * b, 4), (4 * b, 2 * b, 2), (2 * b, b, 1)):
+        convs.append((ci, co, 4, (H // s) * (W // s) // 4))  # u3 u2 u1
+    convs.append((b, n_classes, 1, H * W))  # out
+    return float(sum(2 * ci * co * k * px for ci, co, k, px in convs))
 
-        def stop_after(n, key):
-            def hook(step, args):
-                if args[5] > n:
-                    raise _Stop
-                m = step(*args)
-                if args[5] == n and key:
-                    snaps[key] = copy.deepcopy(args[0])
-                    raise _Stop
-                return m
 
-            return hook
+def _zscore_like_the_library(arr):
+    """runtime/mri_io.cpp's z-score in NumPy: sums in double, in order;
+    mean and std rounded to float32."""
+    v = arr[arr != 0].astype(np.float64)
+    if v.size == 0:
+        return arr
+    mu = np.cumsum(v)[-1] / v.size
+    var = np.cumsum(v * v)[-1] / v.size - mu * mu
+    sigma = np.float32(np.sqrt(max(var, 0.0))) + np.float32(1e-6)
+    return (arr - np.float32(mu)) / sigma
 
-        t0 = time.perf_counter()
-        for out, n, key, every, resume in (
-                ("straight", RESUME_STEPS, "straight", 0, None),
-                ("first", RESUME_STEPS // 2, None, RESUME_STEPS // 2, None),
-                ("resumed", RESUME_STEPS, "resumed", 0,
-                 tmp / "first" / "inr_trainstate.npz")):
-            c = config(out)
-            c.train_steps = RESUME_STEPS
-            c.checkpoint_every = every
-            c.resume_from = None if resume is None else str(resume)
-            with step_hook(stop_after(n, key)):
-                try:
-                    engine.train_inr(c)
-                except _Stop:
-                    pass
-        with torch.no_grad():
-            diff = max(float((a - b).abs().max()) for a, b in zip(
-                snaps["straight"].parameters(),
-                snaps["resumed"].parameters()))
-        log("train", f"exact resume: {RESUME_STEPS} steps straight vs "
-            f"{RESUME_STEPS // 2} + resume + {RESUME_STEPS // 2}: max abs "
-            f"param difference {diff:.3e} (bound {RESUME_TOL}), "
-            f"{time.perf_counter() - t0:.1f} s wall")
-        if not diff <= RESUME_TOL:
-            raise RuntimeError("exact resume differs")
 
-        # The trained field through the neural frame on the validation case.
-        disp = np.stack([percentile_normalize(m) for m in val["mods"]])
-        seg = val["seg"].astype(np.int32)
-        renderer = nm.NeuralBratsRenderer(disp, val["mods"], seg, model,
-                                          params, width=WIDTH, height=HEIGHT)
-        if renderer.backend != "fused":
-            raise RuntimeError(f"backend 'auto' resolved to "
-                               f"{renderer.backend}")
-        p = rp.default_render_params(TRAIN_SHAPE, show_seg=True,
-                                     show_pred=True)
-        radius = rp.default_camera_radius(p, TRAIN_SHAPE)
-        cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
-        q, fr, field = fused_vs_scan(renderer, cam.basis(), p)
-        counts = torch.bincount(field.reshape(-1).long(),
-                                minlength=nc).tolist()
-        log("train", f"trained field at the start pose: O={fr.out_res}, "
-            f"field {tuple(field.shape)}, label counts {counts}; fused vs "
-            f"scan {q:.2f} dB (>= {PSNR_MIN_DB})")
-        if not q >= PSNR_MIN_DB:
-            raise RuntimeError(f"trained field: fused vs scan {q:.2f} dB")
-        torch.cuda.synchronize()
-        composite.composite_planes.field_launches = 0
-        for _ in range(TRAIN_FRAMES):
-            cam.orbit(0.03, 0.01)
-            img = renderer.render(cam.basis(), p)
-        torch.cuda.synchronize()
-        k1b = composite.composite_planes.field_launches
-        log("train", f"{TRAIN_FRAMES} orbit frames of the trained field: "
-            f"K1b launches {k1b}")
-        if k1b != TRAIN_FRAMES or not bool(torch.isfinite(img).all()):
-            raise RuntimeError("trained-field frames failed")
+def unet_phase(torch, card: str, cases) -> None:
+    """Phase 11b: the native loader, the U-Net baseline (``train_unet``)
+    on [train]'s cases, the trained U-Net distilled into an implicit MLP,
+    and the nnU-Net dataset conversion."""
+    import copy
 
-        # 20 steady steps of the main run's own step, under the profiler.
-        step, args = live["step"], live["args"]
-        by_name = device_activity(torch, lambda: step(*args), PROFILE_STEPS)
-        if not by_name:
-            log("train", "profile: device time not measured: the profiler "
-                "saw no device activity")
-        else:
-            busy = sum(us for _, us in by_name.values()) / 1e3 / PROFILE_STEPS
-            ops = sum(n for n, _ in by_name.values()) / PROFILE_STEPS
-            log("train", f"profile per step over {PROFILE_STEPS} steps: "
-                f"{ops:.1f} device operations, device busy {busy:.4f} ms; "
-                f"idle share of the {ms:.4f} ms step {1.0 - busy / ms:.3f}, "
-                f"on {card}")
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-            for name, (n, us) in top:
-                log("train", f"profile {us / 1e3 / PROFILE_STEPS:8.4f} ms/step"
-                    f" {n / PROFILE_STEPS:6.1f}x  {name[:90]}")
+    from mri_raytracer_tpu_torch import convert
+    from mri_raytracer_tpu_torch.data import brats, cache as cache_mod, nifti
+    from mri_raytracer_tpu_torch.data import slices
+    from mri_raytracer_tpu_torch.io import checkpoint as ckpt
+    from mri_raytracer_tpu_torch.io import native
+    from mri_raytracer_tpu_torch.models import unet
+    from mri_raytracer_tpu_torch.ops import composite, warp
+    from mri_raytracer_tpu_torch.train import nnunet, unet_trainer
+
+    tmp, data = cases
+    t_phase = time.perf_counter()
+    composite.composite_planes.launches = warp.warp_screen.launches = 0
+
+    # The native loader, built from runtime/mri_io.cpp.
+    info = native.build_info()
+    if info["available"]:
+        log("unet", f"native: {'built' if info['built'] else 'loaded'} in "
+            f"{info['seconds']:.2f} s ({info['path']})")
+    else:
+        log("unet", f"native: unavailable ({info['error']})")
+    train_cases, val_cases = cache_mod.kfold_split(
+        brats.find_cases(data), TRAIN_CASES, 0, 0)
+    t0 = time.perf_counter()
+    train_cache = cache_mod.RAMCache(train_cases, verbose=False,
+                                     use_native=True)
+    val_cache = cache_mod.RAMCache(val_cases, verbose=False, use_native=True)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = brats.load_case_dict(val_cases[0])
+    t_py = time.perf_counter() - t0
+    got = val_cache.get(0)
+    seg_ok = np.array_equal(got["seg"], py["seg"])
+    base = pathlib.Path(val_cases[0]).name
+    raw = [nifti.load(pathlib.Path(val_cases[0]) / f"{base}-{m}.nii.gz")
+           .data.astype(np.float32) for m in brats.MODALITY_SUFFIXES]
+    if info["available"]:
+        mods_ok = all(np.array_equal(a, _zscore_like_the_library(r))
+                      for a, r in zip(got["mods"], raw))
+    else:
+        mods_ok = np.array_equal(got["mods"], py["mods"])
+    dz = float(np.abs(got["mods"] - py["mods"]).max())
+    log("unet", f"RAMCache(use_native=True): {TRAIN_CASES} cases in "
+        f"{t_nat:.2f} s wall; the Python loader {t_py:.2f} s for one; case "
+        f"{got['name']}: seg bit-equal to the Python loader's {seg_ok}, "
+        f"modalities bit-equal to "
+        f"{'the library z-score in NumPy' if info['available'] else 'it'}"
+        f" {mods_ok}, max |diff| to zscore_nonzero {dz:.3e} (<= 1e-4)")
+    if not (seg_ok and mods_ok and dz <= 1e-4):
+        raise RuntimeError("[unet] the native loader differs")
+
+    # The U-Net baseline, each step timed by CUDA events.
+    live, events, snaps = {}, [], {}
+
+    def timed_step(make):
+        def build(model, optimizer, num_classes=4):
+            live["model"] = model
+            live["init"] = copy.deepcopy(model.state_dict())
+            step = make(model, optimizer, num_classes)
+
+            def run(imgs, labels):
+                live["args"] = (imgs, labels)
+                out = step(imgs, labels)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                return out
+
+            live["step"] = step
+            return run
+
+        return build
+
+    def snap_best(save):
+        def call(tree, path, info=None):
+            snaps["best"] = copy.deepcopy(live["model"].state_dict())
+            return save(tree, path, info)
+
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with patched(unet_trainer, "make_train_step", timed_step), \
+            patched(unet_trainer.ckpt, "save_object", snap_best):
+        out = unet_trainer.train_unet(
+            train_cache, val_cache, epochs=UNET_EPOCHS,
+            batch_size=UNET_BATCH, lr=UNET_LR, base=UNET_BASE,
+            out_dir=str(tmp / "unet"), verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model, hist = out["model"], out["history"]
+    idx = slices.build_slice_index(train_cache, seed=0)
+    val_idx = slices.build_slice_index(val_cache, seed=0)
+    n_steps = len(events)
+    per = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = float(np.median(per[UNET_SKIP:]))
+    H, W = TRAIN_SHAPE[:2]
+    gflop = 3 * UNET_BATCH * unet_flops(UNET_BASE, 4, 4, H, W) / 1e9
+    log("unet", f"train_unet(base={UNET_BASE}, batch_size={UNET_BATCH}, "
+        f"epochs={UNET_EPOCHS}, lr={UNET_LR}): {len(idx)} training slices "
+        f"of {len(train_cases)} cases ({len(val_idx)} validation), "
+        f"{n_steps} steps, wall {wall:.1f} s; float32 convolutions")
+    log("unet", f"ms a step (CUDA events, median over steps "
+        f"{UNET_SKIP + 2}-{n_steps}): {ms:.4f} (mean "
+        f"{float(np.mean(per[UNET_SKIP:])):.4f}, min "
+        f"{min(per[UNET_SKIP:]):.4f}, max {max(per[UNET_SKIP:]):.4f}); "
+        f"{UNET_BATCH / ms * 1e3:.1f} images/s; {gflop:.1f} GFLOP a step "
+        f"(3 x forward {gflop / 3 / UNET_BATCH:.2f} GFLOP an image), "
+        f"{gflop / ms:.2f} TFLOP/s; peak device memory "
+        f"{(peak - held) / 2**20:.1f} MiB for training, on {card}")
+    losses = [h["loss"] for h in hist]
+    dices = [h["val_dice"] for h in hist]
+    model0 = unet.UNet2D(4, 4, UNET_BASE).cuda()
+    model0.load_state_dict(live["init"])
+    dice0 = unet_trainer.val_dice(model0, val_cache, val_idx, UNET_BATCH,
+                                  "cuda")
+    log("unet", f"epoch losses {['%.4f' % v for v in losses]}, val Dice "
+        f"{['%.4f' % v for v in dices]} (initial weights {dice0:.4f}), best "
+        f"epoch {out['best']['epoch']}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError("[unet] the loss did not fall")
+    if not out["best"]["val_dice"] > dice0:
+        raise RuntimeError("[unet] val Dice did not beat the initial "
+                           "weights'")
+
+    # unet_best.npz back into the port: the best epoch's weights, bit for
+    # bit; the trained weights on the card against the CPU.
+    imgs, labels = next(slices.slice_batches(val_cache, val_idx, UNET_BATCH,
+                                             seed=0, epochs=1))
+    x = torch.from_numpy(imgs)
+    best = unet.UNet2D(4, 4, UNET_BASE).cuda()
+    best.load_state_dict(snaps["best"])
+    back = unet.UNet2D(4, 4, UNET_BASE).cuda()
+    back.load_state_dict(convert.unet_from_flax(
+        ckpt.load_params(tmp / "unet" / "unet_best.npz")))
+    with unet_trainer.fp32_convs():
+        same = torch.equal(unet.unet_apply(best, x.cuda()),
+                           unet.unet_apply(back, x.cuda()))
+        on_card = unet.unet_apply(model, x.cuda()).cpu()
+    on_cpu = unet.unet_apply(copy.deepcopy(model).cpu(), x)
+    err = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    log("unet", f"unet_best.npz reloads with bit-equal logits: {same}; "
+        f"trained logits on a {tuple(x.shape)} batch, card vs CPU: max "
+        f"|diff| / max |logit| {err:.3e} (bar {UNET_CPU_TOL}, float32 "
+        "convolutions)")
+    if not same:
+        raise RuntimeError("[unet] unet_best.npz does not reload")
+    if not err <= UNET_CPU_TOL:
+        raise RuntimeError("[unet] the card's logits differ from the CPU's")
+
+    # The trained U-Net's label volume of the validation case, distilled.
+    case = val_cache.get(0)
+    vol = np.moveaxis(case["mods"], 0, -1)  # (H, W, D, M)
+    preds = []
+    for z0 in range(0, vol.shape[2], UNET_BATCH):
+        batch = np.ascontiguousarray(np.moveaxis(
+            vol[:, :, z0:z0 + UNET_BATCH], 2, 0))
+        preds.append(unet_trainer.predict_slices(
+            model, torch.from_numpy(batch).cuda()).cpu().numpy())
+    teacher = np.moveaxis(np.concatenate(preds), 0, -1).astype(np.int16)
+    t0 = time.perf_counter()
+    dist = unet_trainer.distill_to_implicit(teacher)
+    torch.cuda.synchronize()
+    t_dist = time.perf_counter() - t0
+    coords, lab = unet_trainer.collect_voxels(teacher, 512, 1)
+    with torch.no_grad():
+        logits = dist["model"].apply(dist["params"],
+                                     torch.from_numpy(coords).cuda(), None)
+    acc = float((logits.argmax(-1).cpu().numpy() == lab).mean())
+    lh = dist["loss_history"]
+    log("unet", f"distill_to_implicit on the U-Net's {teacher.shape} label "
+        f"volume (classes {np.bincount(teacher.ravel(), minlength=4).tolist()}"
+        f"): 500 steps of 4,096 in {t_dist:.1f} s, loss {lh[0]:.4f} -> "
+        f"{lh[-1]:.4f}, accuracy {acc:.4f} (> {DISTILL_ACC})")
+    if not (lh[-1] < lh[0] and acc > DISTILL_ACC):
+        raise RuntimeError("[unet] distillation did not learn")
+
+    # A few steps of the trainer's own step under the profiler (after the
+    # distillation: they train the model further).
+    step, args = live["step"], live["args"]
+    with unet_trainer.fp32_convs():
+        by_name = device_activity(torch, lambda: step(*args),
+                                  UNET_PROFILE_STEPS)
+    if not by_name:
+        log("unet", "profile: device time not measured: the profiler saw "
+            "no device activity")
+    else:
+        busy = sum(us for _, us in by_name.values()) / 1e3 / UNET_PROFILE_STEPS
+        ops = sum(n for n, _ in by_name.values()) / UNET_PROFILE_STEPS
+        log("unet", f"profile per step over {UNET_PROFILE_STEPS} steps: "
+            f"{ops:.1f} device operations, device busy {busy:.4f} ms; idle "
+            f"share of the {ms:.4f} ms step {1.0 - busy / ms:.3f}, on {card}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        for name, (n, us) in top:
+            log("unet", f"profile {us / 1e3 / UNET_PROFILE_STEPS:8.4f} "
+                f"ms/step {n / UNET_PROFILE_STEPS:5.1f}x  {name[:90]}")
+
+    # nnU-Net's raw layout of the five cases.
+    t0 = time.perf_counter()
+    env = nnunet.setup_nnunet_env(tmp / "nnunet")
+    ds = nnunet.prepare_brats_dataset(brats.find_cases(data),
+                                      env["nnUNet_raw"])
+    imgs_tr = sorted((ds / "imagesTr").iterdir())
+    labs = set()
+    for p in (ds / "labelsTr").iterdir():
+        labs |= set(np.unique(nifti.load(p).data).tolist())
+    meta = json.loads((ds / "dataset.json").read_text())
+    ok = (len(imgs_tr) == 4 * TRAIN_CASES
+          and all(p.is_symlink() for p in imgs_tr)
+          and labs <= {0, 1, 2, 3} and meta["numTraining"] == TRAIN_CASES)
+    log("unet", f"prepare_brats_dataset: {len(imgs_tr)} image links, labels "
+        f"{sorted(labs)}, numTraining {meta['numTraining']}, "
+        f"{time.perf_counter() - t0:.1f} s; nnunetv2 installed: "
+        f"{nnunet.has_nnunet()}")
+    if not ok:
+        raise RuntimeError("[unet] the nnU-Net conversion is wrong")
+    k12 = kernel_launches(composite, warp)
+    log("unet", f"K1, K2 launches {k12} (want (0, 0)); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s, on {card}")
+    if k12 != (0, 0):
+        raise RuntimeError(f"[unet] K1/K2 launched {k12} times")
 
 
 def _plain_composite(torch, colors, alphas):

@@ -4,8 +4,9 @@ Volumes and labels cross as numpy arrays. What else crosses is the render
 parameters and the camera, whose JAX forms are a ``BratsRenderParams`` of
 arrays and a packed 13-float camera vector, and the INR's weights, a
 pytree of dicts and lists of arrays (also what ``io.checkpoint`` loads),
-the fit-from-views field's ``{'B', 'mlp'}`` tree, and the ROI policy's
-``{'W1', 'b1', 'W2', 'b2'}`` dict.
+the fit-from-views field's ``{'B', 'mlp'}`` tree, the ROI policy's
+``{'W1', 'b1', 'W2', 'b2'}`` dict, and the U-Net's flax ``{'params',
+'batch_stats'}`` variables (both ways).
 This module turns their numpy values into the port's tensors and modules
 without importing anything of the JAX package.
 """
@@ -23,6 +24,7 @@ from mri_raytracer_tpu_torch.config import ModelConfig
 from mri_raytracer_tpu_torch.models import features
 from mri_raytracer_tpu_torch.models.api import ModelBundle, build_model
 from mri_raytracer_tpu_torch.models.mlp import MLP, Dense, RffField
+from mri_raytracer_tpu_torch.models.unet import UNet2D
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, unpack_basis
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
 
@@ -165,3 +167,95 @@ def roi_policy_to_numpy(policy: Mapping[str, torch.Tensor]
     """Inverse of ``roi_policy_from_numpy``: float32 numpy leaves."""
     return {k: policy[k].detach().cpu().numpy().astype(np.float32)
             for k in ROI_POLICY_KEYS}
+
+
+# The reference's torch module prefix -> the flax.linen auto-name in the JAX
+# package's models.unet.UNet2D (call order fixes the indices).
+UNET_BLOCKS = {
+    "d1": "DoubleConv_0", "d2": "DoubleConv_1", "d3": "DoubleConv_2",
+    "b": "DoubleConv_3", "c3": "DoubleConv_4", "c2": "DoubleConv_5",
+    "c1": "DoubleConv_6",
+    "u3": "ConvTranspose_0", "u2": "ConvTranspose_1", "u1": "ConvTranspose_2",
+    "out": "Conv_0",
+}
+# Inside a DoubleConv's Sequential: 0 = Conv, 1 = BN, 3 = Conv, 4 = BN.
+_DC_INNER = {"0": "Conv_0", "1": "BatchNorm_0", "3": "Conv_1",
+             "4": "BatchNorm_1"}
+
+
+def _unet_pairs(keys):
+    """(torch key, flax collection, flax path, kind) of each U-Net state
+    key; kind is 'conv', 'convT' (a transposed kernel), or 'copy'."""
+    for k in keys:
+        parts = k.split(".")
+        block = UNET_BLOCKS.get(parts[0])
+        if block is None:
+            raise KeyError(f"unexpected UNet2D key {k!r}")
+        if block.startswith("DoubleConv"):  # d1.net.0.weight
+            inner, leaf = _DC_INNER[parts[2]], parts[3]
+            if inner.startswith("Conv"):
+                yield (k, "params", (block, inner,
+                                     "kernel" if leaf == "weight" else "bias"),
+                       "conv" if leaf == "weight" else "copy")
+            elif leaf in ("weight", "bias"):
+                yield (k, "params", (block, inner,
+                                     "scale" if leaf == "weight" else "bias"),
+                       "copy")
+            elif leaf in ("running_mean", "running_var"):
+                yield (k, "batch_stats",
+                       (block, inner, leaf.split("_")[1]), "copy")
+            # num_batches_tracked: flax keeps no count
+        else:
+            kind = ("convT" if block.startswith("ConvTranspose") else "conv"
+                    ) if parts[1] == "weight" else "copy"
+            yield (k, "params", (block, "kernel" if parts[1] == "weight"
+                                 else "bias"), kind)
+
+
+def unet_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A state dict for the port's ``models.unet.UNet2D`` (the reference's
+    torch layout) from the JAX package's flax ``variables``
+    (``{'params', 'batch_stats'}``, numpy or JAX leaves): Conv kernels
+    ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``; ConvTranspose kernels
+    ``(kh, kw, in, out)`` -> ``(in, out, kh, kw)`` with the spatial flip of
+    ``io/checkpoint.py``'s loader (flax's transposed convolution
+    correlates, torch's scatters the kernel as stored); BatchNorm scale and
+    bias -> weight and bias, ``batch_stats`` mean / var -> running
+    buffers. ``num_batches_tracked`` is 0 (flax keeps no count)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    base = np.asarray(params["DoubleConv_0"]["Conv_0"]["kernel"]).shape[-1]
+    keys = UNet2D(1, 1, base).state_dict().keys()
+    out = {}
+    for k, coll, path, kind in _unet_pairs(keys):
+        node = params if coll == "params" else stats
+        for p in path:
+            node = node[p]
+        v = np.asarray(node, np.float32)
+        if kind == "conv":
+            v = v.transpose(3, 2, 0, 1)
+        elif kind == "convT":
+            v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+        out[k] = torch.tensor(np.ascontiguousarray(v))
+    for k in keys:
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.tensor(0)
+    return out
+
+
+def unet_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """Inverse of ``unet_from_flax``: the JAX package's ``{'params',
+    'batch_stats'}`` tree with numpy leaves from the port's ``UNet2D`` (or
+    its state dict), as ``UNet2D.apply`` takes them."""
+    state = model.state_dict() if isinstance(model, nn.Module) else model
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for k, coll, path, kind in _unet_pairs(state.keys()):
+        v = state[k].detach().cpu().numpy().astype(np.float32)
+        if kind == "conv":
+            v = v.transpose(2, 3, 1, 0)
+        elif kind == "convT":
+            v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+        node = tree[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+    return tree

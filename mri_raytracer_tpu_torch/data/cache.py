@@ -1,6 +1,7 @@
 """Host-side case caches (own copy of ``data/cache.py``, reference D4-D6,
 D9, D10; numpy, so each function returns the JAX package's arrays bit for
-bit: ``tests/test_torch_port_data.py``).
+bit: ``tests/test_torch_port_data.py``; ``RAMCache``'s native path goes
+through the port's ``io/native`` binding of the same C++ library).
 
 Unlike the reference's per-voxel Python loop
 (``inr/inr/dataloader.py:86-96``, the CPU hotspot flagged in SURVEY §3.1),
@@ -25,22 +26,66 @@ class RAMCache:
 
     def __init__(self, case_paths: Sequence[pathlib.Path], name: str = "cache",
                  verbose: bool = True, use_native: bool = True, **load_kw):
-        """``use_native`` is accepted for the JAX package's signature; the
-        port has no C++ loader yet (``io/native.py``, ROADMAP Queue 1) and
-        always loads through ``brats.load_case_dict``, which returns the
-        arrays the JAX package's native path returns
-        (``tests/test_native_io.py``)."""
         self.case_paths = list(case_paths)
         self.name = name
         self.n_cases = len(self.case_paths)
         self.cache: List[Dict[str, np.ndarray]] = []
-        for i, cp in enumerate(self.case_paths):
-            if verbose and i % 20 == 0 and i > 0:
-                print(f"  [{name}] loaded {i}/{self.n_cases}")
-            self.cache.append(brats.load_case_dict(cp, **load_kw))
+        native_ok = use_native and self._try_native_load(load_kw)
+        if not native_ok:
+            for i, cp in enumerate(self.case_paths):
+                if verbose and i % 20 == 0 and i > 0:
+                    print(f"  [{name}] loaded {i}/{self.n_cases}")
+                self.cache.append(brats.load_case_dict(cp, **load_kw))
         if not self.cache:
             raise ValueError(f"{name}: no cases")
         self._finalize()
+
+    def _try_native_load(self, load_kw) -> bool:
+        """GIL-free threaded loading via the C++ runtime (io/native) for the
+        default training normalization; any mismatch falls back to Python."""
+        from mri_raytracer_tpu_torch.io import native
+
+        if not native.available():
+            return False
+        if load_kw.get("normalization", "zscore_nonzero") != "zscore_nonzero":
+            return False
+        modalities = load_kw.get("modalities", brats.MODALITY_SUFFIXES)
+        seg_suffix = load_kw.get("seg_suffix", brats.SEG_SUFFIX)
+        remap = load_kw.get("remap", True)
+        mod_paths, seg_paths, metas = [], [], []
+        for cp in self.case_paths:
+            base = pathlib.Path(cp).name
+            mods = [pathlib.Path(cp) / f"{base}-{m}.nii.gz" for m in modalities]
+            seg = pathlib.Path(cp) / f"{base}-{seg_suffix}.nii.gz"
+            if not all(m.exists() for m in mods) or not seg.exists():
+                return False
+            mod_paths.extend(mods)
+            seg_paths.append(seg)
+            metas.append((base, len(mods)))
+        # Modalities z-scored; seg volumes loaded raw in their own batch
+        # (never normalized, never loaded twice).
+        results = native.load_nifti_batch(mod_paths, zscore=True,
+                                          max_voxels=300 ** 3, n_threads=8)
+        seg_results = native.load_nifti_batch(seg_paths, zscore=False,
+                                              max_voxels=300 ** 3, n_threads=8)
+        k = 0
+        for ci, (base, n_mods) in enumerate(metas):
+            vols = []
+            for _ in range(n_mods):
+                item = results[k]
+                k += 1
+                if item is None:
+                    return False
+                vols.append(item[0])
+            seg_item = seg_results[ci]
+            if seg_item is None:
+                return False
+            seg_arr = seg_item[0].astype(np.int16)
+            if remap:
+                seg_arr[seg_arr == 4] = 3
+            self.cache.append({"mods": np.stack(vols), "seg": seg_arr,
+                               "name": base})
+        return True
 
     def _finalize(self) -> None:
         self.vol_shape = self.cache[0]["mods"].shape[1:]

@@ -4,7 +4,8 @@
 ``_predict_labels`` is the generic float32 path: every voxel's normalized
 coordinates and intensities through ``model.apply`` in chunks.
 ``predict_volume`` takes the separable bf16 bake (``ops.neural_march.
-bake_labels``) for models that allow it, the generic path otherwise.
+bake_labels``) for models that allow it unless ``exact=True``, the generic
+path otherwise.
 ``evaluate_cases`` fans the cases out over threads, so the host-side
 metrics (Hausdorff KD-trees) overlap the device inference.
 """
@@ -44,18 +45,31 @@ def _predict_labels(model: ModelBundle, params, mods: torch.Tensor,
 
 
 def predict_volume(model: ModelBundle, params, case_data, chunk: int = 131072,
+                   gaussian_sigma: float = 0.0, exact: bool = False,
                    device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """(pred_vol, seg_true) like the reference ``predict_volume``. Runs on
-    ``device`` (``cuda`` unless given), where ``params`` must already
-    lie."""
+    """(pred_vol, seg_true) like the reference ``predict_volume``; optional
+    Gaussian pre-filter of the modalities on the host (SciPy's
+    ``gaussian_filter``, reference E8, ``scripts/jax_inr_brats.py:
+    266-270``). Runs on ``device`` (``cuda`` unless given), where ``params``
+    must already lie.
+
+    ``exact=True`` forces the float32 chunked predictor even for separable
+    models: the bf16 separable bake can flip ~0.5% of near-boundary
+    labels, which shifts parity metrics; reference-matching evaluations
+    opt into the exact path."""
     dev = resolve_device(device)
     mods = np.asarray(case_data["mods"], np.float32)
     seg_true = np.asarray(case_data["seg"])
+    if gaussian_sigma > 0.0:
+        from scipy.ndimage import gaussian_filter
+
+        mods = np.stack([gaussian_filter(m, sigma=gaussian_sigma)
+                         for m in mods])
     from mri_raytracer_tpu_torch.ops.neural_march import (bake_labels,
                                                           model_is_separable)
 
     mods_t = torch.as_tensor(mods, device=dev)
-    if model_is_separable(model):
+    if model_is_separable(model) and not exact:
         pred = bake_labels(model, params, mods_t)
     else:
         pred = _predict_labels(model, params, mods_t, chunk=chunk)

@@ -1,5 +1,4 @@
-"""Checkpoint writers and loaders (port of ``io/checkpoint.py:27-136`` and
-``:285-319``).
+"""Checkpoint writers and loaders (port of ``io/checkpoint.py``).
 
 The JAX package's two on-disk formats are plain numpy, so they are read and
 written here without JAX, and a file written by either package loads in the
@@ -16,12 +15,20 @@ as numpy), the ``torch.Generator``'s state and the step. The writers take either
 the port's model (an ``nn.Module`` whose state-dict keys spell the JAX
 layout, ``models/mlp.py``). The object format is a pickle: load only
 checkpoints this project wrote.
+
+The reference's torch ``.pth`` files (reference C6) load straight into the
+port's modules: ``load_torch_state_dict`` reads the three containers,
+``torch_mlp_to_pytree`` builds the port's ``MLP``, ``load_torch_unet`` the
+port's ``UNet2D``. The JAX package's ``orbax_checkpointer`` (an orbax
+async checkpointer of JAX arrays) has no counterpart: the port's states
+are torch tensors, written by ``save_train_state``.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -189,6 +196,80 @@ def inspect_npz(path, indent: int = 0) -> List[str]:
     for key in npz.files:
         walk(npz[key], key, indent)
     return lines
+
+
+def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
+    """Load a torch ``.pth`` checkpoint into ``{name: np.ndarray}``.
+
+    Accepts the three layouts the reference persists (C6): a raw
+    ``state_dict`` (U-Net / distilled MLP, ``Final-1.ipynb §6,§12``), a dict
+    wrapping one under ``state_dict``/``model_state_dict``, and nnU-Net's
+    ``checkpoint_final.pth`` whose weights live under ``network_weights``
+    (``scripts/nnunet_train_export.py:404-410``). A ``.pth`` is a pickle
+    (``weights_only=False``, as the JAX package loads it): load only files
+    you trust."""
+    obj = torch.load(str(path), map_location="cpu", weights_only=False)
+    for key in ("network_weights", "state_dict", "model_state_dict"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+            break
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: expected a state_dict, got {type(obj)}")
+    out = {}
+    for k, v in obj.items():
+        if hasattr(v, "detach"):
+            out[str(k)] = v.detach().cpu().numpy()
+    if not out:
+        raise ValueError(f"{path}: no tensors in checkpoint "
+                         f"(keys: {list(obj)[:8]})")
+    return out
+
+
+def torch_mlp_to_pytree(state_dict: Dict[str, np.ndarray]):
+    """torch ``nn.Linear`` stack -> the port's ``models.mlp.MLP``.
+
+    Imports the reference's distilled implicit MLP teacher
+    (``Final-1.ipynb §12``: ``net.{0,2,4}.weight/bias``). torch Linear
+    weights are ``(out, in)``, the port's ``Dense.W`` is ``(in, out)`` as
+    in JAX, so each W transposes; ``params_to_numpy`` of the result is the
+    JAX package's list-of-``{'W','b'}`` pytree."""
+    from mri_raytracer_tpu_torch.models.mlp import MLP, Dense
+
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    for k, v in state_dict.items():
+        m = re.match(r"(?:.*\.)?(\d+)\.(weight|bias)$", k)
+        if not m:
+            continue
+        v = np.asarray(v)
+        want = 2 if m.group(2) == "weight" else 1
+        if v.ndim != want:
+            continue
+        layers.setdefault(int(m.group(1)), {})[m.group(2)] = v
+    idxs = sorted(i for i, d in layers.items() if "weight" in d)
+    if not idxs:
+        raise ValueError(f"no Linear layers among {list(state_dict)[:8]}")
+    out = []
+    for i in idxs:
+        w = layers[i]["weight"]
+        b = layers[i].get("bias", np.zeros(w.shape[0], w.dtype))
+        out.append(Dense(torch.tensor(np.ascontiguousarray(w.T)),
+                         torch.tensor(b)))
+    return MLP(out)
+
+
+def load_torch_unet(state_dict: Dict[str, np.ndarray]):
+    """The port's ``models.unet.UNet2D`` from a reference U-Net state dict
+    (``load_torch_state_dict`` of its ``.pth``): the port keeps the
+    reference's layout, so the weights load as they are. Input channels,
+    classes and base width are read off the weights; the module is on the
+    CPU in eval mode."""
+    from mri_raytracer_tpu_torch.models.unet import UNet2D
+
+    state = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()}
+    first, head = state["d1.net.0.weight"], state["out.weight"]
+    net = UNet2D(first.shape[1], head.shape[0], first.shape[0])
+    net.load_state_dict(state)
+    return net.eval()
 
 
 def _to_numpy(obj: Any) -> Any:

@@ -125,8 +125,11 @@ def build_train_step(model: ModelBundle, loss_cfg: LossConfig, optimizer,
             for p in params.parameters():
                 if p.grad is not None:
                     p.grad.mul_(inv)
-        optimizer.step()
-        return StepMetrics(loss=l_sum * inv, ce=aux_sum["ce"] * inv,
+        # The mean loss reaches the optimizers that read it (momo_adam), as
+        # the JAX step passes value=metrics.loss.
+        loss = l_sum * inv
+        optimizer.step(value=loss)
+        return StepMetrics(loss=loss, ce=aux_sum["ce"] * inv,
                            dice_per_class=aux_sum["dice_per_class"] * inv,
                            ce_per_class=aux_sum["ce_per_class"] * inv)
 

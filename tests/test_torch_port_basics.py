@@ -95,6 +95,12 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.apps.noise_app",
     "mri_raytracer_tpu_torch.apps.mesh_app",
     "mri_raytracer_tpu_torch.apps.hybrid_app",
+    "mri_raytracer_tpu_torch.data.manifest",
+    "mri_raytracer_tpu_torch.data.slices",
+    "mri_raytracer_tpu_torch.io.native",
+    "mri_raytracer_tpu_torch.models.unet",
+    "mri_raytracer_tpu_torch.train.unet_trainer",
+    "mri_raytracer_tpu_torch.train.nnunet",
 ]
 
 

@@ -37,7 +37,7 @@ def dataset(tmp_path_factory):
 def caches(dataset):
     cases = tbrats.find_cases(dataset)
     return (jcache.RAMCache(cases, verbose=False, use_native=False),
-            tcache.RAMCache(cases, verbose=False))
+            tcache.RAMCache(cases, verbose=False, use_native=False))
 
 
 def test_synthetic_dataset_files_equal(dataset, tmp_path):
@@ -101,7 +101,8 @@ def test_lru_chunked_and_train_val_caches_equal(dataset):
                                                verbose=False,
                                                use_native=False)
     tt, vt, it = tcache.build_train_val_caches(dataset, 3, 3, 1, 0,
-                                               verbose=False)
+                                               verbose=False,
+                                               use_native=False)
     assert it == ij
     np.testing.assert_array_equal(tt.stacked()[0], tj.stacked()[0])
     np.testing.assert_array_equal(vt.stacked()[1], vj.stacked()[1])

@@ -13,7 +13,13 @@ tests/test_torch_port_train_cuda.py``.
     at 40 steps);
   * a train step makes no host sync: under
     ``torch.cuda.set_sync_debug_mode("error")`` a synchronizing call
-    (``.item()``, a blocking host-to-device copy) raises.
+    (``.item()``, a blocking host-to-device copy) raises; the
+    ``optax.contrib`` optimizers included;
+  * a U-Net training step on the card against the same step on the CPU
+    (full float32 convolutions, ``train/unet_trainer.fp32_convs``): the
+    first loss rtol 1e-5, the train-mode logits after two steps within
+    1e-3 of their largest (Adam turns the rounding noise of near-zero
+    gradients into steps of up to ``lr``).
 """
 
 import numpy as np
@@ -25,8 +31,10 @@ from mri_raytracer_tpu_torch.data import cache as tcache
 from mri_raytracer_tpu_torch.data import pool as tpool
 from mri_raytracer_tpu_torch.data import sampling
 from mri_raytracer_tpu_torch.data.synthetic import write_synthetic_dataset
+from mri_raytracer_tpu_torch.models import unet
 from mri_raytracer_tpu_torch.models.api import build_model
-from mri_raytracer_tpu_torch.train import engine, optimizers, steps
+from mri_raytracer_tpu_torch.train import engine, optimizers, steps, \
+    unet_trainer
 
 
 def _card():
@@ -73,6 +81,11 @@ VARIANTS = {
                       coord_noise_sigma_end=0.1),
     "siren": dict(kind="siren"),
     "lion": dict(optimizer="lion", freq_dropout=0.2),
+    "muon": dict(optimizer="muon"),
+    "prodigy": dict(optimizer="prodigy"),
+    "dadapt_adamw": dict(optimizer="dadapt_adamw"),
+    "schedule_free_adamw": dict(optimizer="schedule_free_adamw"),
+    "momo_adam": dict(optimizer="momo_adam"),
 }
 
 
@@ -105,7 +118,9 @@ def test_exact_resume_on_the_card(dataset, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["uniform", "hybrid", "tv", "boundary",
-                                  "two_stage", "lion"])
+                                  "two_stage", "lion", "muon", "prodigy",
+                                  "dadapt_adamw", "schedule_free_adamw",
+                                  "momo_adam"])
 def test_train_step_makes_no_host_sync(dataset, name):
     dev = _card()
     cfg = _tiny(dataset, "unused", **VARIANTS[name])
@@ -136,3 +151,27 @@ def test_train_step_makes_no_host_sync(dataset, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(m.loss)) and opt.count == 4
+
+
+@pytest.mark.cuda
+def test_unet_step_on_the_card_matches_cpu():
+    dev = _card()
+    rng = np.random.default_rng(0)
+    batches = [(torch.from_numpy(rng.normal(size=(4, 64, 64, 4))
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 4, (4, 64, 64))
+                                 .astype(np.int32))) for _ in range(2)]
+    runs = {}
+    for d in ("cpu", dev):
+        net = unet.create_unet(torch.Generator().manual_seed(0), 4, 4, 8,
+                               (64, 64)).to(d)
+        step = unet_trainer.make_train_step(
+            net, unet_trainer.build_adamw(net, 1e-3), 4)
+        with unet_trainer.fp32_convs():
+            losses = [float(step(x.to(d), y.to(d))) for x, y in batches]
+            logits = unet.unet_apply(net, batches[0][0].to(d), train=True)
+        runs[str(d)] = (losses, logits.detach().cpu())
+    (lc, gc), (lg, gg) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(lg[0], lc[0], rtol=1e-5)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert float((gg - gc).abs().max()) <= 1e-3 * float(gc.abs().max())
