@@ -20,9 +20,11 @@ field the neural frame then renders; the optimizer zoo's optax.contrib
 optimizers through the same trainer; the U-Net baseline (``train_unet``
 with its native-loaded cases, distillation into an implicit MLP and the
 nnU-Net dataset conversion), which runs no kernel of the port (the JAX
-package's convolutions are XLA's, the port's cuDNN's); and differentiable
-rendering with
-the two fits of an INR from rendered views (``train/fit_views.py``); and
+package's convolutions are XLA's, the port's cuDNN's); the parallel
+modules over a one-rank NCCL process group (the data-parallel train step,
+and the stripe- and slab-sharded renderers, whose warp is K2); and
+differentiable rendering with the two fits of an INR from rendered views
+(``train/fit_views.py``); and
 the ROI policy renderer with its evaluation protocol and training at
 1920 x 1080 (``ops/roi_policy.py``, ``eval/roi_protocol.py``), which runs
 no kernel of the port (the JAX package computes it in XLA too); and the
@@ -116,6 +118,19 @@ either. Phases:
               UNET_PROFILE_STEPS steps; prepare_brats_dataset on the five
               cases (20 image links, labels in {0..3}); K1 and K2 launch
               no time in 11a-11b
+ 11c. parallel  the parallel modules on a world-size-1 NCCL process group
+              (file rendezvous; the mesh's groups NCCL): the DP step
+              (``build_dp_train_step(data_parallel=1)``) at TrainConfig()
+              on [train]'s loaded train cases against the plain step from
+              the same key, PAR_STEPS steps in turns, metrics and params
+              <= PAR_TOL, ms a step of each (median after PAR_SKIP), the
+              all-reduce's NCCL record in a profile of 3 DP steps; the
+              stripe renderer on the bench frame at the six poses against
+              the unsharded scan frame, in turns (<= PAR_TOL; K2 launches
+              one a frame), ms a frame of each, a profile of one stripe
+              frame; the slab renderer at the start pose against the
+              one-rank term_gate=False composite (<= PAR_TOL, one K2
+              launch)
  12. fit      differentiable rendering and fit-from-views: each
               autograd.Function (trilinear_sample, composite_fronttoback,
               isosurface_intersect) against autograd through its plain
@@ -260,6 +275,12 @@ UNET_SKIP = 10
 UNET_PROFILE_STEPS = 5
 UNET_CPU_TOL = 1e-4
 DISTILL_ACC = 0.5
+# [parallel]: the DP step's steps, the steps its median skips, and the bound
+# on its difference from the plain step and on the sharded frames'
+# difference from the unsharded ones (one rank computes the same).
+PAR_STEPS = 50
+PAR_SKIP = 10
+PAR_TOL = 1e-6
 # The [fit] phase: docs/FIT_FROM_VIEWS_shearwarp.md's and
 # docs/FIT_FROM_VIEWS.md's configurations (scripts/fit_from_views.py), the
 # PSNR gate of both (train and held-out means), the steps left out of the
@@ -798,9 +819,10 @@ def run(torch) -> int:
 
     # ----------------------------------- 11. training, optimizers, U-Net
     with training_cases(card) as cases:
-        train_phase(torch, card, cases)
+        train_cache = train_phase(torch, card, cases)
         optim_phase(torch, card, cases)
         unet_phase(torch, card, cases)
+        parallel_phase(torch, card, cases, train_cache, mods, seg)
 
     # ------------------------------------------------------------ 12. fit
     fit_phase(torch, card)
@@ -1412,12 +1434,13 @@ def train_config(tmp: pathlib.Path, data: pathlib.Path, out: str):
     return c
 
 
-def train_phase(torch, card: str, cases=None) -> None:
+def train_phase(torch, card: str, cases=None):
     """Phase 11: INR training through ``train_inr`` at the full default
     ``TrainConfig()`` on TRAIN_CASES synthetic BraTS-2023-size cases, its
     checks (loss, Dice, checkpoints, exact resume) and the trained field
     rendered by the neural frame. ``cases`` is ``training_cases``'s
-    (work directory, data root); without it the phase writes its own."""
+    (work directory, data root); without it the phase writes its own.
+    Returns the main run's loaded train cache, which [parallel] reuses."""
     import copy
 
     from mri_raytracer_tpu_torch import convert
@@ -1651,6 +1674,7 @@ def train_phase(torch, card: str, cases=None) -> None:
         for name, (n, us) in top:
             log("train", f"profile {us / 1e3 / PROFILE_STEPS:8.4f} ms/step"
                 f" {n / PROFILE_STEPS:6.1f}x  {name[:90]}")
+    return state["train_cache"]
 
 
 def optim_phase(torch, card: str, cases) -> None:
@@ -2026,6 +2050,257 @@ def unet_phase(torch, card: str, cases) -> None:
         f"{time.perf_counter() - t_phase:.1f} s, on {card}")
     if k12 != (0, 0):
         raise RuntimeError(f"[unet] K1/K2 launched {k12} times")
+
+
+def parallel_phase(torch, card: str, cases=None, train_cache=None,
+                   mods=None, seg=None) -> None:
+    """Phase 11c: the parallel modules on a world-size-1 NCCL process group
+    (file rendezvous), so that every collective is an NCCL launch. The DP
+    step at ``TrainConfig()`` on [train]'s loaded train cases against the
+    plain step from the same key, PAR_STEPS steps in turns (metrics and
+    params <= PAR_TOL), ms a step of each; the stripe renderer on the bench
+    frame at the six poses against the unsharded scan frame (<= PAR_TOL,
+    one K2 launch a frame), ms a frame; the slab renderer at the start
+    pose against the one-rank term_gate=False composite (<= PAR_TOL).
+    Alone, without [train]'s cases and cache or the bench volume
+    (display-normalized modalities and labels), it makes its own."""
+    import copy
+    import datetime
+
+    import torch.distributed as dist
+
+    from mri_raytracer_tpu_torch.data import pool as pool_mod
+    from mri_raytracer_tpu_torch.data import sampling
+    from mri_raytracer_tpu_torch.models.api import build_model
+    from mri_raytracer_tpu_torch.ops import shearwarp as sw
+    from mri_raytracer_tpu_torch.ops import warp
+    from mri_raytracer_tpu_torch.parallel import mesh as mesh_mod
+    from mri_raytracer_tpu_torch.parallel import render as prender
+    from mri_raytracer_tpu_torch.parallel import training as ptrain
+    from mri_raytracer_tpu_torch.render import params as rp
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.train import optimizers, steps
+
+    if cases is None:
+        with training_cases(card) as cases:
+            return parallel_phase(torch, card, cases, train_cache, mods, seg)
+    tmp, data = cases
+    if train_cache is None:
+        from mri_raytracer_tpu_torch.data import cache as cache_mod
+
+        c = train_config(tmp, data, "parallel").data
+        train_cache = cache_mod.build_train_val_caches(
+            c.data_root, c.case_limit, c.num_folds, c.fold_index, c.seed,
+            cache_kind="ram", verbose=False)[0]
+    if mods is None:
+        from mri_raytracer_tpu_torch.data.brats import percentile_normalize
+        from mri_raytracer_tpu_torch.data.synthetic import synthetic_case
+
+        raw, seg = synthetic_case(VOL, seed=0)
+        mods = np.stack([percentile_normalize(m) for m in raw])
+        seg = seg.astype(np.int32)
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=mesh_mod.rendezvous_url(str(tmp / "pg_store")),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = mesh_mod.make_mesh(1, 1)
+        backends = {a: dist.get_backend(mesh.axis(a).group)
+                    for a in ("data", "space")}
+        log("parallel", f"process group: world 1, backend "
+            f"{dist.get_backend()}, mesh {mesh.shape}, axis groups "
+            f"{backends}, on {card}")
+        if set(backends.values()) != {"nccl"}:
+            raise RuntimeError(f"the mesh's groups are not NCCL: {backends}")
+
+        # --- The DP step against the plain step, in turns.
+        cfg = train_config(tmp, data, "parallel")
+        dc = cfg.data
+        model = build_model(cfg.model, train_cache.n_modalities,
+                            rff_seed=dc.seed)
+        p_dp = model.init(torch.Generator().manual_seed(dc.seed)).cuda()
+        p_plain = copy.deepcopy(p_dp)
+        pool = pool_mod.DevicePool(
+            train_cache, dc.pool_size, seed=dc.seed,
+            with_boundary=cfg.loss.boundary_weight > 0.0)
+        sampler = sampling.make_sampler(dc.sampler, cfg.micro_batch,
+                                        dc.tumor_ratio,
+                                        dc.min_subclass_samples, model=model)
+        noise = steps.make_coord_noise_schedule(
+            cfg.optim.coord_noise_sigma_start,
+            cfg.optim.coord_noise_sigma_end, cfg.train_steps)
+        accum = -(-cfg.global_batch // cfg.micro_batch)
+        o_dp = optimizers.build_optimizer(cfg.optim, cfg.train_steps, p_dp)
+        o_plain = optimizers.build_optimizer(cfg.optim, cfg.train_steps,
+                                             p_plain)
+        dp_step = ptrain.build_dp_train_step(model, cfg.loss, o_dp, sampler,
+                                             accum, 1, noise, mesh)
+        plain_step = steps.build_train_step(model, cfg.loss, o_plain,
+                                            sampler, accum, noise)
+        k_dp = torch.Generator().manual_seed(dc.seed)
+        k_plain = torch.Generator().manual_seed(dc.seed)
+        pools = (pool.mods, pool.segs)
+        ev = {"dp": [], "plain": []}
+        m_err = 0.0
+        for s in range(1, PAR_STEPS + 1):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            marks[0].record()
+            m_dp = dp_step(p_dp, o_dp, k_dp, *pools, s, pool.boundary)
+            marks[1].record()
+            # The plain step with the rank generator the DP step seeds.
+            g = torch.Generator(device="cuda").manual_seed(
+                ptrain.shard_seed(k_plain, 0))
+            marks[2].record()
+            m_plain = plain_step(p_plain, o_plain, g, *pools, s,
+                                 pool.boundary)
+            marks[3].record()
+            ev["dp"].append(marks[:2])
+            ev["plain"].append(marks[2:])
+            m_err = max([m_err] + [float((a - b).abs().max())
+                                   for a, b in zip(m_dp, m_plain)])
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            p_err = max(float((a - b).abs().max()) for a, b in
+                        zip(p_dp.parameters(), p_plain.parameters()))
+            moved = max(float((a - b).abs().max()) for a, b in zip(
+                p_dp.parameters(), model.init(torch.Generator().manual_seed(
+                    dc.seed)).cuda().parameters()))
+        ms = {k: float(np.median([a.elapsed_time(b) for a, b in
+                                  v[PAR_SKIP:]])) for k, v in ev.items()}
+        log("parallel", f"DP step (data_parallel=1) vs plain step, "
+            f"{PAR_STEPS} steps in turns at TrainConfig() "
+            f"({cfg.model.hidden_dims}, global batch {cfg.global_batch} = "
+            f"{accum} x {cfg.micro_batch}) on {train_cache.n_cases} train "
+            f"cases: max|metrics| diff {m_err:.3e}, max|params| diff "
+            f"{p_err:.3e} (bound {PAR_TOL}), params moved {moved:.3e}; "
+            f"last loss {float(m_dp.loss):.4f}, on {card}")
+        log("parallel", f"ms a step, median after step {PAR_SKIP} (CUDA "
+            f"events): DP {ms['dp']:.4f}, plain {ms['plain']:.4f}, "
+            f"DP - plain {ms['dp'] - ms['plain']:+.4f}, on {card}")
+        if not (m_err <= PAR_TOL and p_err <= PAR_TOL and moved > 1e-3
+                and np.isfinite(float(m_dp.loss))):
+            raise RuntimeError("the DP step differs from the plain step")
+        # The all-reduce goes through NCCL: its host-side record in a
+        # profile of 3 DP steps. (NCCL launches no kernel for an in-place
+        # all-reduce over one rank; its device kernels, if any, print.)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                dp_step(p_dp, o_dp, k_dp, *pools, PAR_STEPS, pool.boundary)
+            torch.cuda.synchronize()
+        calls, kern = {}, {}
+        for e in prof.events():
+            if "nccl" in e.name.lower():
+                d = kern if e.device_type == DeviceType.CUDA else calls
+                d[e.name] = d.get(e.name, 0) + 1
+        log("parallel", f"profile of 3 DP steps: NCCL calls {calls}, NCCL "
+            f"device kernels {kern or 'none'}, on {card}")
+        if not any("all_reduce" in n for n in calls):
+            raise RuntimeError("the DP step made no NCCL all-reduce")
+        del pool, p_dp, p_plain, o_dp, o_plain
+
+        # --- The stripe renderer on the bench frame at the six poses.
+        p = rp.default_render_params(VOL, show_seg=True, show_pred=False)
+        radius = rp.default_camera_radius(p, VOL)
+        mods_d = torch.as_tensor(mods, device="cuda")
+        seg_d = torch.as_tensor(seg, device="cuda")
+        stripe = prender.build_sharded_renderer(mesh, VOL, WIDTH, HEIGHT,
+                                                has_seg=True)
+        bases = [OrbitalCamera(radius=radius, theta=th, phi=ph).basis()
+                 for _, th, ph in POSES]
+        stripe(mods_d, seg_d, None, bases[0], p)  # warm-up
+        # In turns, pose by pose: the stripe frame (its K2 launches counted
+        # from 0 around it), then the unsharded scan frame.
+        imgs, walls, refs, ref_walls, k2 = [], [], [], [], 0
+        for b in bases:
+            torch.cuda.synchronize()
+            warp.warp_screen.launches = 0
+            t0 = time.perf_counter()
+            imgs.append(stripe(mods_d, seg_d, None, b, p))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            k2 += warp.warp_screen.launches
+            t0 = time.perf_counter()
+            refs.append(sw.render_brats(mods_d, seg_d, None, b, p, WIDTH,
+                                        HEIGHT, composite="scan"))
+            torch.cuda.synchronize()
+            ref_walls.append((time.perf_counter() - t0) * 1e3)
+        errs = [float((a - b).abs().max()) for a, b in zip(imgs, refs)]
+        log("parallel", f"stripe renderer, {VOL} at {WIDTH}x{HEIGHT} + seg, "
+            f"six poses: max|stripe - unsharded scan| per pose "
+            + ", ".join(f"{n} {e:.3e}" for (n, _, _), e in zip(POSES, errs))
+            + f" (bound {PAR_TOL}); K2 launches {k2} for {len(bases)} "
+            f"frames, on {card}")
+        log("parallel", f"ms a frame (host clock, synced, in turns): "
+            f"stripe median {np.median(walls):.1f} (min {min(walls):.1f}, "
+            f"max {max(walls):.1f}), unsharded scan median "
+            f"{np.median(ref_walls):.1f}; stripe - unsharded per pose "
+            + ", ".join(f"{a - b:+.1f}" for a, b in zip(walls, ref_walls))
+            + f", on {card}")
+        if not (max(errs) <= PAR_TOL and k2 == len(bases) and all(
+                bool(torch.isfinite(i).all()) for i in imgs)):
+            raise RuntimeError("the stripe renderer failed")
+        by_name = device_activity(
+            torch, lambda: stripe(mods_d, seg_d, None, bases[0], p), 1,
+            warm=False)
+        if not by_name:
+            log("parallel", "profile of a stripe frame: device time not "
+                "measured: the profiler saw no device activity")
+        else:
+            busy = sum(us for _, us in by_name.values()) / 1e3
+            frame = float(np.median(walls))
+            log("parallel", f"profile of a stripe frame at pose "
+                f"{POSES[0][0]}: {sum(n for n, _ in by_name.values())} "
+                f"device operations, device busy {busy:.1f} ms; idle share "
+                f"of the {frame:.1f} ms frame {1.0 - busy / frame:.3f}, on "
+                f"{card}")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+            for name, (n, us) in top:
+                log("parallel", f"profile {us / 1e3:8.3f} ms {n:5d}x  "
+                    f"{name[:90]}")
+        del imgs, refs
+
+        # --- The slab renderer at the start pose.
+        basis = bases[0].to("cuda")
+        axis = sw.dominant_axis(basis)
+        mixed_s, seg_s, _ = sw.prepare_sweep_volumes(
+            mods_d, seg_d, None, p.to("cuda"), axis)
+        slab = prender.build_volume_sharded_renderer(
+            mesh, VOL, WIDTH, HEIGHT, axis, has_seg=True)
+        place = mesh_mod.space_sharded(mesh, 0)
+        torch.cuda.synchronize()
+        warp.warp_screen.launches = 0
+        t0 = time.perf_counter()
+        img = slab(place.local(mixed_s), place.local(seg_s), basis, p)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        k2 = warp.warp_screen.launches
+        pd = p.to("cuda")
+        use_gamma, use_clip = sw.static_flags(pd)
+        geom = sw.sweep_geometry(basis, pd, tuple(mixed_s.shape), axis,
+                                 WIDTH, frustum_wh=(WIDTH, HEIGHT))
+        C, _ = sw.sweep_composite(mixed_s, seg_s, None, geom, pd, axis,
+                                  WIDTH, 1, use_gamma, use_clip,
+                                  term_gate=False)
+        ref = sw.warp_to_screen(C, geom, basis, axis, WIDTH, HEIGHT,
+                                pd.bg_color)
+        err = float((img - ref).abs().max())
+        log("parallel", f"slab renderer at pose {POSES[0][0]} (axis "
+            f"{axis}, one slab of {mixed_s.shape[0]}): max|slab - one-rank "
+            f"term_gate=False composite| {err:.3e} (bound {PAR_TOL}); K2 "
+            f"launches {k2}; {wall:.1f} ms (host clock, synced), on {card}")
+        if not (err <= PAR_TOL and k2 == 1
+                and bool(torch.isfinite(img).all())):
+            raise RuntimeError("the slab renderer failed")
+    finally:
+        dist.destroy_process_group()
+    log("parallel", f"phase {time.perf_counter() - t_phase:.1f} s wall, on "
+        f"{card}")
 
 
 def _plain_composite(torch, colors, alphas):

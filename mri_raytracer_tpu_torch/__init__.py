@@ -12,7 +12,9 @@ Entry points (``render.brats.BratsRenderer``, ``ops.shearwarp.render_brats``,
 ``train.engine.train_inr``, ``train.fit_views.run`` / ``run_shearwarp``,
 the secondary renderers (``render.volume.GridVolumeRenderer``,
 ``ops.sdf.render_sdf``, ``ops.noise2d.render_noise_demo``,
-``render.mesh.MeshRenderer``, ``render.hybrid.HybridRenderer``), and the
+``render.mesh.MeshRenderer``, ``render.hybrid.HybridRenderer``), the
+sharded renderers and the bring-up of ``parallel`` (one process a device:
+NCCL between cards, gloo between CPU ranks), and the
 apps ``python -m mri_raytracer_tpu_torch.apps.brats_app`` / ``.apps.serve``
 / ``.apps.train_inr`` / ``.apps.fit_from_views`` / ``.apps.roi_policy_eval``
 / ``.apps.{volume,sdf,noise,mesh,hybrid}_app``) run on ``cuda`` unless
@@ -55,5 +57,6 @@ io/{logging,dashboard}.py, models/{features,mlp,api}.py,
 ops/{trilinear,shearwarp,neural_march,diffrender,importance,isosurface,
 roi_policy,sdf,noise2d}.py, render/{params,camera,brats,presets,volume,
 mesh,hybrid}.py, train/{optimizers,steps,engine,fit_views}.py,
-utils/{arith,profiling}.py.
+utils/{arith,profiling}.py, parallel/{mesh,training,render}.py (ranks of a
+``torch.distributed`` process group in place of a device mesh).
 """

@@ -303,8 +303,8 @@ def _render_neural_axis(fr: NeuralFrame, model: ModelBundle, params,
         field = frame_field(model, params, fr, pred_stride, pred_kstride)
     C, _ = sw.sweep_composite(
         fr.mixed_s, fr.seg_s, None, fr.geom, fr.p, fr.axis, fr.out_res, 1,
-        fr.use_gamma, fr.use_clip, fr.z_offset, fr.nk_global,
-        pred_field=field, field_stride=pred_stride,
+        fr.use_gamma, fr.use_clip, z_offset=fr.z_offset,
+        nk_global=fr.nk_global, pred_field=field, field_stride=pred_stride,
         field_kstride=pred_kstride)
     return sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis, width, height,
                              fr.p.bg_color)

@@ -388,8 +388,10 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
                     pred_s: Optional[torch.Tensor], geom: SweepGeom,
                     p: BratsRenderParams, axis: int, out_res: int,
                     supersample: int = 1, use_gamma: bool = True,
-                    use_clip: bool = True, z_offset=None,
+                    use_clip: bool = True,
+                    out_cols: Optional[int] = None, z_offset=None,
                     nk_global: Optional[int] = None,
+                    term_gate: bool = True,
                     pred_field: Optional[torch.Tensor] = None,
                     field_stride: int = 1, field_kstride: int = 1,
                     remat: bool = False
@@ -404,9 +406,17 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
     whatever the volume depth (the training path; forward-only rendering
     keeps remat=False).
 
+    ``out_cols`` < out_res composites a column stripe of the intermediate
+    (spatial sharding, ``parallel/render.py``): ``geom`` then carries the
+    stripe's vmag / dt_map / t_entry columns and a b0 shifted by j0 * db,
+    and C, T are (out_res, out_cols).
+
     Slab mode: ``mixed_s`` holds slices [z_offset, z_offset + K) of an
     ``nk_global``-deep volume; the slab composites its own planes, plus the
     closing plane z = nk_global only when it holds the volume end.
+    ``term_gate=False`` drops the T <= 0.01 early exit, so that slabs
+    composited apart fold exactly (the gate needs the upstream
+    transmittance, which another rank holds).
 
     ``pred_field``: the neural march's mode-2 overlay in place of
     ``pred_s`` (``neural_march.py:383-395``): integer labels
@@ -416,6 +426,10 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
     """
     Nk, Na, Nb = mixed_s.shape
     dev = mixed_s.device
+    cols = out_cols or out_res
+    if pred_field is not None and cols != out_res:
+        raise ValueError("pred_field covers the whole intermediate; it "
+                         "takes no out_cols")
     if pred_field is not None:
         n_rows = -(-(Nk * supersample + 1) // field_kstride)
         want = (n_rows, out_res // field_stride, out_res // field_stride)
@@ -468,7 +482,7 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
         # forward-only path does not pay.
         all_a = _batched_hat(off_a_all, sc_a_all, Na, out_res, acl, ach, aml,
                              amh)
-        all_b = _batched_hat(off_b_all, sc_b_all, Nb, out_res, bcl, bch, bml,
+        all_b = _batched_hat(off_b_all, sc_b_all, Nb, cols, bcl, bch, bml,
                              bmh)
 
     def hats(m: int):
@@ -477,7 +491,7 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
             return all_a[0][m], all_a[1][m], all_b[0][m], all_b[1][m]
         return (*hat_matrix(off_a_all[m], sc_a_all[m], Na, out_res, acl, ach,
                             aml, amh),
-                *hat_matrix(off_b_all[m], sc_b_all[m], Nb, out_res, bcl, bch,
+                *hat_matrix(off_b_all[m], sc_b_all[m], Nb, cols, bcl, bch,
                             bml, bmh))
 
     v_lo = p.wl - p.ww * 0.5
@@ -513,7 +527,7 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
         t1 = _bf16_dot(Wa, sl)
         v = _bf16_dot(t1, Wb.T)  # (O, O)
 
-        act = (on & (T > 0.01)).to(_F32)
+        act = (on & (T > 0.01) if term_gate else on).to(_F32)
         scale, started = entry_correction(ext, act, started)
         dt_e = dt * scale
         # jnp.clip(x, 0, 1) with its 0.5/0.5 gradient at a tie.
@@ -526,7 +540,7 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
         if seg_s is not None or pred_s is not None:
             Wan = nearest_matrix(off_a_all[m], sc_a_all[m], Na, out_res, acl,
                                  acn)
-            Wbn = nearest_matrix(off_b_all[m], sc_b_all[m], Nb, out_res, bcl,
+            Wbn = nearest_matrix(off_b_all[m], sc_b_all[m], Nb, cols, bcl,
                                  bcn)
             zn = zn_all[m]
         if seg_s is not None:
@@ -548,9 +562,9 @@ def sweep_composite(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
             C, T = _composite(C, T, rgba[..., :3], a)
         return C, T, started
 
-    C = torch.zeros((out_res, out_res, 3), dtype=_F32, device=dev)
-    T = torch.ones((out_res, out_res), dtype=_F32, device=dev)
-    started = torch.zeros((out_res, out_res), dtype=_F32, device=dev)
+    C = torch.zeros((out_res, cols, 3), dtype=_F32, device=dev)
+    T = torch.ones((out_res, cols), dtype=_F32, device=dev)
+    started = torch.zeros((out_res, cols), dtype=_F32, device=dev)
     for m in range(n_planes):
         Wa, mask_a, Wb, mask_b = hats(m)
         on, ext = gate(m, mask_a, mask_b)

@@ -11,8 +11,11 @@ line with the JAX package's ``train_inr``, with these differences:
     ``DataConfig.seed`` (the init draws from a CPU generator with the same
     seed), and an exact resume restores the generator's state;
   * the host reads the step's metrics only at the log steps;
-  * ``data_parallel > 1`` raises until the ``parallel/`` modules are
-    ported (ROADMAP slice F).
+  * ``data_parallel > 1`` runs one process a device: every rank of an
+    initialized process group of ``data_parallel`` ranks calls
+    ``train_inr`` (``torchrun --nproc-per-node N``), the step is
+    ``parallel.training.build_dp_train_step``, rank 0 alone writes files,
+    and every rank returns the same state.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mri_raytracer_tpu_torch import convert
 from mri_raytracer_tpu_torch.config import TrainConfig
@@ -34,7 +38,31 @@ from mri_raytracer_tpu_torch.eval import inference
 from mri_raytracer_tpu_torch.io import checkpoint as ckpt
 from mri_raytracer_tpu_torch.io.logging import RunLogger
 from mri_raytracer_tpu_torch.models.api import build_model
+from mri_raytracer_tpu_torch.parallel import mesh as mesh_mod
+from mri_raytracer_tpu_torch.parallel import training as ptrain
 from mri_raytracer_tpu_torch.train import optimizers, steps
+
+
+class _Silent:
+    """The logger of a rank that writes nothing: every method a no-op."""
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
+
+
+def _dp_mesh(data_parallel: int) -> Optional[mesh_mod.Mesh]:
+    """The data-parallel mesh, or None for one process. One process drives
+    one device, so ``data_parallel`` must be the process group's size."""
+    if data_parallel <= 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != data_parallel:
+        raise ValueError(
+            f"data_parallel={data_parallel} needs an initialized process "
+            f"group of {data_parallel} ranks, one a device; have {world} "
+            "(launch with torchrun --nproc-per-node "
+            f"{data_parallel})")
+    return mesh_mod.make_mesh(data=data_parallel)
 
 
 def train_inr(config: TrainConfig | Dict[str, Any],
@@ -52,21 +80,22 @@ def train_inr(config: TrainConfig | Dict[str, Any],
         config.use_wandb = use_wandb
     if resume_from is not None:
         config.resume_from = resume_from
-    if config.data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel > 1 needs the parallel/ modules, not ported yet "
-            "(ROADMAP slice F)")
+    mesh = _dp_mesh(config.data_parallel)
+    # Rank 0 of the data axis alone writes files.
+    lead = mesh is None or mesh.axis("data").index == 0
 
     out_dir = pathlib.Path(config.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     # ---------------------------------------------------------------- data
     dc = config.data
     train_cache, val_cache, info = cache_mod.build_train_val_caches(
         dc.data_root, dc.case_limit, dc.num_folds, dc.fold_index, dc.seed,
         cache_kind="ram", verbose=False)
-    cache_mod.save_splits(out_dir / "splits", info["train_cases"],
-                          info["val_cases"])
+    if lead:
+        cache_mod.save_splits(out_dir / "splits", info["train_cases"],
+                              info["val_cases"])
     # Boundary-weighted loss (reference L8): precompute 1/(1+EDT) maps once
     # per case and carry them in the device pool; every sampler gathers them
     # into per-sample weights.
@@ -82,7 +111,10 @@ def train_inr(config: TrainConfig | Dict[str, Any],
     # --------------------------------------------------------------- model
     model = build_model(config.model, train_cache.n_modalities,
                         rff_seed=dc.seed)
-    generator = torch.Generator(device=dev).manual_seed(dc.seed)
+    # Data-parallel ranks share a CPU key that seeds each step's rank
+    # generators (parallel/training.py).
+    generator = torch.Generator(device=dev if mesh is None else "cpu") \
+        .manual_seed(dc.seed)
     params = model.init(torch.Generator().manual_seed(dc.seed))
 
     start_step = 0
@@ -110,24 +142,33 @@ def train_inr(config: TrainConfig | Dict[str, Any],
         generator.set_state(resumed_state["rng_state"])
         start_step = resumed_state["step"]
 
-    accum_steps = max(1, -(-config.global_batch // config.micro_batch))
+    # global = micro * accum * dp: each data-parallel rank samples its own
+    # micro-batches, so accumulation shrinks as the mesh grows.
+    dp = max(1, config.data_parallel)
+    accum_steps = max(1, -(-config.global_batch // (config.micro_batch * dp)))
     micro = config.micro_batch
     sampler = sampling.make_sampler(dc.sampler, micro, dc.tumor_ratio,
                                     dc.min_subclass_samples, model=model)
     coord_noise = steps.make_coord_noise_schedule(
         config.optim.coord_noise_sigma_start,
         config.optim.coord_noise_sigma_end, config.train_steps)
-    step_fn = steps.build_train_step(model, config.loss, optimizer, sampler,
-                                     accum_steps, coord_noise)
+    if mesh is not None:
+        step_fn = ptrain.build_dp_train_step(
+            model, config.loss, optimizer, sampler, accum_steps, dp,
+            coord_noise, mesh)
+    else:
+        step_fn = steps.build_train_step(model, config.loss, optimizer,
+                                         sampler, accum_steps, coord_noise)
 
     # ------------------------------------------------------------- logging
     logger = RunLogger(out_dir, config.run_name, config.to_dict(),
                        use_wandb=config.use_wandb,
-                       wandb_project=config.wandb_project)
+                       wandb_project=config.wandb_project) if lead \
+        else _Silent()
     from mri_raytracer_tpu_torch.io.dashboard import TrainingDashboard
 
     dashboard = TrainingDashboard(out_dir, config.model.num_classes,
-                                  enabled=config.live_dashboard)
+                                  enabled=config.live_dashboard and lead)
 
     # ------------------------------------------------------------ hot loop
     t_start = time.time()
@@ -149,7 +190,8 @@ def train_inr(config: TrainConfig | Dict[str, Any],
                          for i, v in enumerate(cpc)})
             logger.log(scal, step)
             history.append({"step": step, "loss": loss})
-        if config.checkpoint_every > 0 and step % config.checkpoint_every == 0:
+        if lead and config.checkpoint_every > 0 \
+                and step % config.checkpoint_every == 0:
             stem = out_dir / f"{config.run_name}_step{step:06d}.npz"
             if isinstance(ckpt.params_to_numpy(params), list):
                 ckpt.save_flat(params, stem)  # reference flat format
@@ -206,9 +248,10 @@ def train_inr(config: TrainConfig | Dict[str, Any],
                              pred_slice, base_img)
             if np.isfinite(md) and md > best_val["mean_dice"]:
                 best_val = {"mean_dice": md, "step": step}
-                best_path = out_dir / f"{config.run_name}_best.npz"
-                ckpt.save_object(params, best_path,
-                                 info={"step": step, "val_mean_dice": md})
+                if lead:
+                    ckpt.save_object(
+                        params, out_dir / f"{config.run_name}_best.npz",
+                        info={"step": step, "val_mean_dice": md})
     train_time = time.time() - t_start
 
     # ---------------------------------------------------------- final save
@@ -218,8 +261,9 @@ def train_inr(config: TrainConfig | Dict[str, Any],
                     "NUM_CLASSES": config.model.num_classes,
                     "HIDDEN_DIMS": list(config.model.hidden_dims),
                     "train_time_sec": train_time}
-    ckpt.save_object(params, final_path, info=info_payload)
-    if isinstance(ckpt.params_to_numpy(params), list):
+    if lead:
+        ckpt.save_object(params, final_path, info=info_payload)
+    if lead and isinstance(ckpt.params_to_numpy(params), list):
         ckpt.save_flat(params, out_dir / f"{config.run_name}_flat.npz")
 
     # ----------------------------------------------------------- evaluation

@@ -81,7 +81,8 @@ def sample_tv_patch(generator: torch.Generator, mods_pool: torch.Tensor,
 
 def build_train_step(model: ModelBundle, loss_cfg: LossConfig, optimizer,
                      sampler: Callable, accum_steps: int,
-                     coord_noise: Optional[Callable] = None):
+                     coord_noise: Optional[Callable] = None,
+                     grad_psum_axis=None):
     """Returns ``step(params, optimizer, generator, mods_pool, segs_pool,
     step_idx, boundary_pool=None) -> StepMetrics``, which updates
     ``params`` (the model's ``nn.Module``) in place through ``optimizer``
@@ -89,8 +90,10 @@ def build_train_step(model: ModelBundle, loss_cfg: LossConfig, optimizer,
 
     ``coord_noise(step_idx) -> sigma`` enables stochastic preconditioning
     (reference T7, ``improved.ipynb §12``: Gaussian coordinate noise with
-    annealed sigma). The data-parallel step is not ported yet (ROADMAP
-    slice F).
+    annealed sigma). ``grad_psum_axis`` (a ``parallel.mesh.MeshAxis``)
+    turns it into one rank's data-parallel step: the mean gradient and the
+    metrics are averaged over that mesh axis before the update, so every
+    rank applies the same one (``parallel/training.py``).
     """
     tv_patch = 24
     loss_fn = make_loss(model, loss_cfg, tv_patch)
@@ -125,15 +128,35 @@ def build_train_step(model: ModelBundle, loss_cfg: LossConfig, optimizer,
             for p in params.parameters():
                 if p.grad is not None:
                     p.grad.mul_(inv)
+        metrics = StepMetrics(loss=l_sum * inv, ce=aux_sum["ce"] * inv,
+                              dice_per_class=aux_sum["dice_per_class"] * inv,
+                              ce_per_class=aux_sum["ce_per_class"] * inv)
+        if grad_psum_axis is not None:
+            metrics = _mean_over_axis(params, metrics, grad_psum_axis)
         # The mean loss reaches the optimizers that read it (momo_adam), as
         # the JAX step passes value=metrics.loss.
-        loss = l_sum * inv
-        optimizer.step(value=loss)
-        return StepMetrics(loss=loss, ce=aux_sum["ce"] * inv,
-                           dice_per_class=aux_sum["dice_per_class"] * inv,
-                           ce_per_class=aux_sum["ce_per_class"] * inv)
+        optimizer.step(value=metrics.loss)
+        return metrics
 
     return step
+
+
+def _mean_over_axis(params, metrics: StepMetrics, axis) -> StepMetrics:
+    """Average the gradients of ``params`` (in place) and ``metrics`` over
+    mesh axis ``axis`` with one all-reduce of a flat buffer: a sum, then a
+    division by the axis size (``ReduceOp.AVG`` is not on every backend
+    and version)."""
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    parts = grads + list(metrics)
+    flat = torch.cat([t.reshape(-1) for t in parts])
+    axis.all_reduce_sum(flat)
+    flat.div_(axis.size)
+    pieces = [piece.view_as(t) for t, piece in
+              zip(parts, torch.split(flat, [t.numel() for t in parts]))]
+    with torch.no_grad():
+        for g, piece in zip(grads, pieces):
+            g.copy_(piece)
+    return StepMetrics(*pieces[len(grads):])
 
 
 def make_coord_noise_schedule(sigma_start: float, sigma_end: float,

@@ -101,6 +101,9 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.models.unet",
     "mri_raytracer_tpu_torch.train.unet_trainer",
     "mri_raytracer_tpu_torch.train.nnunet",
+    "mri_raytracer_tpu_torch.parallel.mesh",
+    "mri_raytracer_tpu_torch.parallel.training",
+    "mri_raytracer_tpu_torch.parallel.render",
 ]
 
 

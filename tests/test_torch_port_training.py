@@ -271,7 +271,10 @@ def test_periodic_eval_best_checkpoint_and_dashboard(dataset, tmp_path):
 
 
 def test_unsupported_options_raise(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice F"):
+    # data_parallel > 1 trains under a process group of that many ranks
+    # (tests/test_torch_port_parallel.py); one process refuses it.
+    with pytest.raises(ValueError, match="data_parallel=2 needs an "
+                                         "initialized process group of 2"):
         _train(dataset, tmp_path, data_parallel=2)
     # muon trains since it was ported (tests/test_torch_port_optim.py);
     # sophia fails as JAX's does on its first step.
