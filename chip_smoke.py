@@ -31,7 +31,8 @@ no kernel of the port (the JAX package computes it in XLA too); and the
 secondary renderers through their five apps (the u8 grid volume, the SDF
 sphere tracer, the simplex-noise demo, the brute-force and BVH triangle
 tracers, the hybrid volume + mesh-shadow renderer), which run no kernel
-either. Phases:
+either; and the front ends: the notebook viewers and the eleven script
+CLIs. Phases:
 
   1. env      torch / CUDA / card / nvcc report
   2. build    nvcc of every kernel in csrc/ (in parallel), with what
@@ -131,6 +132,24 @@ either. Phases:
               frame; the slab renderer at the start pose against the
               one-rank term_gate=False composite (<= PAR_TOL, one K2
               launch)
+ 11d. cli     the front ends on [train]'s cases, loaded cache and trained
+              INR: OrbitViewer.frame on the bench renderer (equal to
+              render_numpy clipped; K1a and K2 once each), SliceViewer's
+              multiview of the bench volume, HoldoutViewer's prediction
+              (wall, the cache hit), slice report and image; then the
+              eleven script CLIs through their main(argv) at the JAX
+              scripts' defaults but for the CLI_* cuts: read_npz on the
+              checkpoint, roi_report, neural_psnr_cert --train-steps 600
+              (each pose's dB beside JAX's record; rc 0 exactly when its
+              pass_40db holds), bench_neural_march (plain, baked, neural
+              fps, MLP overhead, re-bake ms), full_geometry_smoke on the
+              cases (no new write), demo_end_to_end (PSNR against the
+              oracle, the scan's fps), orbit_video (BraTS, then ROI),
+              roi_occupancy_bound, roi_showcase_figures,
+              bench_roi_overhead at 1920 x 1080 and roi_retime, each
+              exiting as it should with its files written; K1a / K1b / K2
+              launches counted from 0 around each call and held to its
+              frames (none on the ROI paths)
  12. fit      differentiable rendering and fit-from-views: each
               autograd.Function (trilinear_sample, composite_fronttoback,
               isosurface_intersect) against autograd through its plain
@@ -238,6 +257,7 @@ APP_WARMUP = 3
 # Front-end scratch (cases, checkpoint, PNGs), under the checkout's
 # gitignored build/ and removed at the end.
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
+DOCS = BUILD.parent / "docs"
 # Added to the random INR's last bias so that several classes appear
 # (tests/test_neural_march.py:176).
 BIAS_NUDGE = (0.0, 0.4, 0.5, 0.45)
@@ -335,6 +355,28 @@ ROI_TRAIN_STEPS, ROI_TRAIN_RES = 800, 96
 ROI_VAL_MIN_DB = 54.94 - 1.5
 ROI_LOSS_BAND = 1.05
 ROI_PROFILE_FRAMES = 2
+
+# The [cli] phase: the script CLIs of apps/ and the notebook viewers, at
+# the JAX scripts' defaults but for these cuts (the phase aims at <= 150 s
+# and the script at a margin over the spread of its wall between hosts):
+# orbit_video --which roi at 12 of its 72 frames, roi_retime on one scene at
+# 3 of its 20 rounds, bench_roi_overhead at 3 of its 12 frames,
+# demo_end_to_end at 100 of its 400 training steps. The two trainings of
+# the phase (full_geometry_smoke's and the demo's) skip the host Hausdorff
+# of train_inr's final eval: [train] runs that eval in full, and no gate
+# here reads it.
+CLI_ROI_FRAMES = 12
+CLI_VIDEO = (384, 72)  # orbit_video's default --res and --frames
+CLI_RETIME_SCENE = "tumor-a"
+CLI_RETIME_ROUNDS = 3
+CLI_OVERHEAD_FRAMES = 3
+CLI_CERT_STEPS = 600
+CLI_FG_CASES = 3
+CLI_FG_STEPS = 60
+CLI_DEMO_STEPS = 100
+# Written by the JAX script on its TPU (docs/neural_psnr_cert_trained.json):
+# context for the port's certificate, not a gate (the inits differ).
+JAX_CERT = DOCS / "neural_psnr_cert_trained.json"
 
 # Phases 14-18: the secondary renderers and their apps (no kernel of the
 # port's; PyTorch on the card, as the JAX package computes them in XLA).
@@ -823,6 +865,8 @@ def run(torch) -> int:
         optim_phase(torch, card, cases)
         unet_phase(torch, card, cases)
         parallel_phase(torch, card, cases, train_cache, mods, seg)
+        cli_phase(torch, card, cases, train_cache, renderer, p, radius,
+                  mods, seg)
 
     # ------------------------------------------------------------ 12. fit
     fit_phase(torch, card)
@@ -1366,6 +1410,264 @@ def front_end_phase(torch, card: str) -> None:
             f"{SERVER_FRAMES} + warm-up {APP_WARMUP})")
         if grew != (want, want) or thread.is_alive():
             raise RuntimeError("server launch counts or shutdown wrong")
+
+
+def call_app(app, argv):
+    """``app.main(argv)`` with its stdout captured: (rc, stdout, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_phase(torch, card: str, cases, train_cache, renderer, p,
+              radius: float, mods, seg) -> None:
+    """Phase 11d: the notebook viewers (render/widgets.py) and the eleven
+    script CLIs of apps/ through their entry points, on the bench frame,
+    [train]'s cases, its loaded cache and its trained INR, at the JAX
+    scripts' defaults but for the CLI_* cuts. Each call's K1a / K1b / K2
+    launches are counted from 0 and held to what its frames need; every
+    file a CLI writes (under a work directory in build/, removed after)
+    is checked."""
+    from PIL import Image
+
+    from mri_raytracer_tpu_torch import convert
+    from mri_raytracer_tpu_torch.apps import (
+        bench_neural_march, bench_roi_overhead, demo_end_to_end,
+        full_geometry_smoke, neural_psnr_cert, orbit_video, read_npz,
+        roi_occupancy_bound, roi_report, roi_retime, roi_showcase_figures)
+    from mri_raytracer_tpu_torch.config import ModelConfig
+    from mri_raytracer_tpu_torch.eval import metrics
+    from mri_raytracer_tpu_torch.io import checkpoint as ckpt
+    from mri_raytracer_tpu_torch.ops import composite, warp
+    from mri_raytracer_tpu_torch.render import widgets
+    from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+
+    k1, k2 = composite.composite_planes, warp.warp_screen
+    walls = {}
+
+    def launched(name: str, want) -> None:
+        """K1a / K1b / K2 launches since the counters were zeroed, held to
+        ``want``, then zeroed again."""
+        torch.cuda.synchronize()
+        got = (k1.launches - k1.field_launches, k1.field_launches,
+               k2.launches)
+        log("cli", f"{name}: K1a / K1b / K2 launches {got} (want {want})")
+        if got != tuple(want):
+            raise RuntimeError(f"[cli] {name}: launches {got}, want {want}")
+        k1.launches = k1.field_launches = k2.launches = 0
+
+    def app(name: str, module, argv, want, rc_ok=(0,)):
+        rc, text, sec = call_app(module, argv)
+        walls[name] = sec
+        for line in text.splitlines():
+            log("cli", f"  {line}")
+        log("cli", f"{name} {' '.join(map(str, argv))}: rc {rc}, "
+            f"{sec:.1f} s wall, on {card}")
+        if rc not in rc_ok:
+            raise RuntimeError(f"[cli] {name} returned {rc}")
+        launched(name, want)
+        return rc, text
+
+    def no_hausdorff(_):
+        """The final eval's Hausdorff as NaN a class (what the eval writes
+        for a class it cannot score)."""
+        return lambda pred, true, spacing=None, num_classes=4: {
+            c: float("nan") for c in range(num_classes)}
+
+    def need(path: pathlib.Path) -> pathlib.Path:
+        if not path.is_file() or path.stat().st_size == 0:
+            raise RuntimeError(f"[cli] {path.name} was not written")
+        return path
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    k1.launches = k1.field_launches = k1.count_launches = k2.launches = 0
+    work_dir, data = cases
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_",
+                                     dir=BUILD) as tmp:
+        tmp = pathlib.Path(tmp)
+
+        # The viewers. OrbitViewer over the bench renderer: one frame.
+        cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
+        viewer = widgets.OrbitViewer(renderer, p, cam)
+        t0 = time.perf_counter()
+        img = viewer.frame()
+        walls["OrbitViewer.frame"] = time.perf_counter() - t0
+        launched("OrbitViewer.frame", (1, 0, 1))
+        same = np.array_equal(img, np.clip(renderer.render_numpy(
+            cam.basis(), p), 0, 1))
+        k1.launches = k2.launches = 0
+        log("cli", f"OrbitViewer.frame {img.shape} in "
+            f"{walls['OrbitViewer.frame'] * 1e3:.1f} ms: equal to "
+            f"render_numpy clipped: {same}, on {card}")
+        if not same:
+            raise RuntimeError("[cli] OrbitViewer.frame differs")
+        t0 = time.perf_counter()
+        multi = widgets.SliceViewer(mods, seg=seg).render_multiview()
+        walls["SliceViewer.render_multiview"] = time.perf_counter() - t0
+        log("cli", f"SliceViewer.render_multiview on {VOL}: {multi.shape} "
+            f"in {walls['SliceViewer.render_multiview']:.2f} s (host NumPy)")
+        if multi.shape != (VOL[1], 3 * VOL[0], 3) or \
+                not np.isfinite(multi).all():
+            raise RuntimeError("[cli] SliceViewer.render_multiview failed")
+        # HoldoutViewer: [train]'s trained INR on one of its cases.
+        inr = work_dir / "run" / "inr.npz"
+        tree, info = ckpt.model_load(inr)
+        model, params = convert.inr_params_from_numpy(
+            tree, ModelConfig.from_info(info), device="cuda")
+        case = train_cache.get(0)
+        hv = widgets.HoldoutViewer(model, params, [case])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = hv.prediction(0)
+        t_pred = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = hv.prediction(0) is pred
+        t_cached = time.perf_counter() - t0
+        # The slice with the most tumour voxels.
+        z = int(np.argmax((np.asarray(case["seg"]) > 0).sum(axis=(0, 1))))
+        rep = hv.slice_report(0, z)
+        pic = hv.render(0, z)
+        walls["HoldoutViewer"] = t_pred
+        launched("HoldoutViewer", (0, 0, 0))
+        log("cli", f"HoldoutViewer on {case.get('name', 'case 0')} "
+            f"{tuple(case['seg'].shape)}: prediction {t_pred:.3f} s wall "
+            f"(again from the cache in {t_cached * 1e3:.3f} ms: {cached}); "
+            f"slice {z}: macro Dice {rep['macro_dice']:.4f}, PSNR "
+            f"{rep['psnr']:.2f} dB; image {pic.shape}, on {card}")
+        if not cached or pic.shape != (case["seg"].shape[0],
+                                       2 * case["seg"].shape[1], 3):
+            raise RuntimeError("[cli] HoldoutViewer failed")
+
+        # read_npz on [train]'s checkpoint; roi_report into build/.
+        _, text = app("read_npz", read_npz, [inr], (0, 0, 0))
+        if not text.startswith(f"== {inr}") or len(text.splitlines()) < 4:
+            raise RuntimeError("[cli] read_npz printed no tree")
+        app("roi_report", roi_report, ["--out", tmp / "roi_report"],
+            (0, 0, 0))
+        need(tmp / "roi_report" / "ROI_RESULTS.md")
+
+        # neural_psnr_cert --train-steps 600 at its defaults: 6 poses x 2
+        # kstrides of fused neural frames (K1b + K2 each).
+        rc, _ = app("neural_psnr_cert", neural_psnr_cert,
+                    ["--train-steps", CLI_CERT_STEPS, "--out", tmp / "cert"],
+                    (0, 12, 12), rc_ok=(0, 1))
+        rec = json.loads(need(tmp / "cert" /
+                              "neural_psnr_cert_trained.json").read_text())
+        jrec = json.loads(JAX_CERT.read_text())
+        for ks, r in rec["kstride"].items():
+            j = jrec["kstride"].get(ks, {})
+            log("cli", f"cert kstride {ks}: " + ", ".join(
+                f"{n} {q:.2f}" for n, q in r["per_pose"].items())
+                + f" dB; min {r['min_db']:.2f} at {r['min_pose']}, median "
+                f"{r['median_db']:.2f} (JAX on its TPU, recorded: min "
+                f"{j.get('min_db')}, median {j.get('median_db')}); pass_40db "
+                f"{r['pass_40db']}, on {card}")
+        if rc != (0 if rec["overall_pass"] else 1):
+            raise RuntimeError(f"[cli] neural_psnr_cert rc {rc} against "
+                               f"overall_pass {rec['overall_pass']}")
+
+        # bench_neural_march at its defaults: 1 + 10 x 3 frames each of
+        # plain and baked (K1a + K2) and neural (K1b + K2).
+        n = 1 + 10 * 3
+        _, text = app("bench_neural_march", bench_neural_march,
+                      ["--out", tmp / "bnm"], (2 * n, n, 3 * n))
+        nm = json.loads(text.strip().splitlines()[-1])
+        log("cli", f"bench_neural_march {nm['size']}^2 / {nm['vol']}^3: "
+            f"plain {nm['plain_fps']} fps, baked {nm['baked_fps']}, neural "
+            f"{nm['value']}; MLP overhead {nm['mlp_overhead_ms']} ms a "
+            f"frame; bake {nm['bake_seconds']} s, re-bake {nm['rebake_ms']}"
+            f" ms, on {card}")
+
+        # full_geometry_smoke on [train]'s dataset (no new write): warm-up
+        # 3 + 1 + 3 x 10 orbit frames + the checked frame (K1a + K2).
+        before = sorted(str(q) for q in data.rglob("*"))
+        with patched(metrics, "hausdorff_distance", no_hausdorff):
+            _, text = app("full_geometry_smoke", full_geometry_smoke,
+                          ["--root", data, "--cases", CLI_FG_CASES,
+                           "--steps", CLI_FG_STEPS, "--out", tmp / "fg"],
+                          (35, 0, 35))
+        if sorted(str(q) for q in data.rglob("*")) != before:
+            raise RuntimeError("[cli] full_geometry_smoke wrote a dataset")
+        fg = json.loads(text.strip().splitlines()[-1])
+        log("cli", "full_geometry_smoke: " + ", ".join(
+            f"{k} {v}" for k, v in fg.items() if k not in ("metric", "unit"))
+            + f", on {card}")
+
+        # demo_end_to_end at its constants but CLI_DEMO_STEPS: the 'sweep'
+        # backend (the plain scan) warps with K2: warm-up 3 + 1 + 3 + 20
+        # frames.
+        with patched(metrics, "hausdorff_distance", no_hausdorff), \
+                patched(demo_end_to_end, "run_demo", lambda run: (
+                    lambda *a, **kw: run(*a, steps=CLI_DEMO_STEPS, **kw))):
+            _, text = app("demo_end_to_end", demo_end_to_end,
+                          ["--out", tmp / "demo"], (0, 0, 27))
+        for f in ("RESULTS_r1.md", "renders/inr_overlay_sweep.png",
+                  "renders/inr_overlay_oracle.png"):
+            need(tmp / "demo" / f)
+        for line in text.splitlines():
+            if "PSNR" in line or "fps" in line:
+                log("cli", f"demo_end_to_end: {line.strip('- ')}")
+
+        # orbit_video: the BraTS orbit at its defaults, then the ROI split
+        # screens at CLI_ROI_FRAMES frames.
+        res, frames = CLI_VIDEO
+        app("orbit_video brats", orbit_video,
+            ["--which", "brats", "--out", tmp / "video"],
+            (frames, 0, frames))
+        gif = Image.open(need(tmp / "video" / "img" / "brats_orbit.gif"))
+        if gif.n_frames != frames or gif.size != (res, res):
+            raise RuntimeError(f"[cli] brats_orbit.gif: {gif.n_frames} "
+                               f"frames of {gif.size}")
+        app("orbit_video roi", orbit_video,
+            ["--which", "roi", "--frames", CLI_ROI_FRAMES, "--out",
+             tmp / "video"], (0, 0, 0))
+        verdicts = json.loads((DOCS / "roi_results.json").read_text())[
+            "verdicts"]
+        voting = sorted(v["scene"] for v in verdicts
+                        if v.get("counts_toward_bar", True))
+        rois = sorted((tmp / "video" / "img").glob("roi_orbit_*.gif"))
+        if [g.name for g in rois] != [f"roi_orbit_{v}.gif" for v in voting] \
+                or any(Image.open(g).n_frames != CLI_ROI_FRAMES
+                       for g in rois):
+            raise RuntimeError(f"[cli] ROI orbit GIFs: {rois}")
+
+        # The ROI CLIs (no kernel of the port).
+        _, text = app("roi_occupancy_bound", roi_occupancy_bound, [],
+                      (0, 0, 0))
+        if len(text.strip().splitlines()) != 5:
+            raise RuntimeError("[cli] roi_occupancy_bound: not 5 scenes")
+        app("roi_showcase_figures", roi_showcase_figures,
+            ["--out", tmp / "fig"], (0, 0, 0))
+        need(tmp / "fig" / "experiments.csv")
+        for kind in ("pareto", "frames"):
+            got = sorted(q.name for q in
+                         (tmp / "fig" / "img").glob(f"roi_{kind}_*.png"))
+            if got != sorted(f"roi_{kind}_{v['scene']}.png"
+                             for v in verdicts):
+                raise RuntimeError(f"[cli] roi_{kind} PNGs: {got}")
+        _, text = app("bench_roi_overhead", bench_roi_overhead,
+                      ["--frames", CLI_OVERHEAD_FRAMES], (0, 0, 0))
+        if len(text.strip().splitlines()) != 4:
+            raise RuntimeError("[cli] bench_roi_overhead: not 3 budgets")
+        docs_json = DOCS / "roi_results.json"
+        stamp = docs_json.read_bytes()
+        app("roi_retime", roi_retime,
+            ["--scenes", CLI_RETIME_SCENE, "--rounds", CLI_RETIME_ROUNDS,
+             "--out", tmp / "retime", "--ref-cache", tmp / "refs"],
+            (0, 0, 0))
+        need(tmp / "retime" / "roi_results.json")
+        need(tmp / "retime" / "ROI_RESULTS.md")
+        if docs_json.read_bytes() != stamp:
+            raise RuntimeError("[cli] roi_retime changed docs/")
+    total = time.perf_counter() - t_phase
+    log("cli", "walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in walls.items()))
+    log("cli", f"phase wall {total:.1f} s, on {card}")
 
 
 class _Stop(Exception):
@@ -2917,17 +3219,11 @@ def roi_phase(torch, card: str) -> None:
 def run_app(phase: str, app, argv) -> str:
     """``app.main(argv)`` with its stdout echoed under the phase's tag;
     fails unless it returns 0. Returns what it printed."""
-    import io
-
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = app.main([str(a) for a in argv])
-    text = buf.getvalue()
+    rc, text, sec = call_app(app, argv)
     for line in text.splitlines():
         log(phase, f"  {line}")
     log(phase, f"{app.__name__.rsplit('.', 1)[-1]} {' '.join(map(str, argv))}"
-        f": rc {rc}, {time.perf_counter() - t0:.1f} s")
+        f": rc {rc}, {sec:.1f} s")
     if rc != 0:
         raise RuntimeError(f"[{phase}] the app returned {rc}")
     return text

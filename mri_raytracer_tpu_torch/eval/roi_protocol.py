@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import hashlib
 import pathlib
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +28,7 @@ from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.ops import roi_policy
 from mri_raytracer_tpu_torch.render import params as rp
 from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+from mri_raytracer_tpu_torch.utils import profiling
 
 
 def psnr(img, ref, w=None) -> float:
@@ -265,25 +265,11 @@ def median_ci(xs, n_boot: int = 2000, seed: int = 0) -> Dict[str, float]:
             "n": int(len(xs))}
 
 
-def _sync(t: torch.Tensor) -> None:
-    """Wait for ``t``'s device (the card's queue; nothing on the CPU)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 def _median_time(fn, n_frames: int, batches: int = 3) -> float:
     """Median wall-clock seconds per call of ``fn`` (which returns a
     tensor): frames are queued back to back and synced once per batch,
     like an interactive loop."""
-    _sync(fn())  # warm + sync
-    ts = []
-    for _ in range(batches):
-        t0 = time.perf_counter()
-        for _ in range(n_frames):
-            out = fn()
-        _sync(out)
-        ts.append((time.perf_counter() - t0) / n_frames)
-    return float(np.median(ts))
+    return profiling.median_time(fn, n_frames, batches)
 
 
 def _dev_metrics(img, ref, wmap):
@@ -409,15 +395,8 @@ def pareto_sweep(policy, scene, views: Sequence[np.ndarray],
     def timed_ms(fn):
         """Median + CI of per-frame wall ms: batches of 3 frames queued back
         to back, one sync per batch."""
-        _sync(fn())  # warm + sync
-        per_frame = []
-        for _ in range(max(n_frames // 3, 1)):
-            t0 = time.perf_counter()
-            for _ in range(3):
-                out = fn()
-            _sync(out)
-            per_frame.append(1e3 * (time.perf_counter() - t0) / 3)
-        return median_ci(per_frame)
+        return median_ci([1e3 * t for t in profiling.batch_times(
+            fn, 3, max(n_frames // 3, 1))])
 
     out = {"budgets": list(budgets),
            "ref_steps": ref_steps, "width": width, "height": height,

@@ -2,6 +2,8 @@
 
   * ``FPSMeter`` — EMA of 1/frame-time (the reference viewer's overlay)
   * ``sync`` — wait for a tensor's device work
+  * ``batch_times`` / ``median_time`` — batches of calls queued back to
+    back, one ``sync`` a batch
   * ``Timer`` / ``timed`` — wall-clock sections that end in ``sync``
   * ``trace`` — ``torch.profiler`` around a block, exported as a Chrome
     trace
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import pathlib
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -41,6 +44,29 @@ def sync(x) -> None:
     (or anything else) is already done."""
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+def batch_times(fn, frames: int, batches: int = 3, warm: bool = True
+                ) -> List[float]:
+    """Wall-clock seconds a call of ``fn`` (which returns a tensor), one
+    entry a batch: after a synced warm call (unless ``warm`` is False),
+    ``batches`` batches of ``frames`` calls are queued back to back, each
+    batch ended by one ``sync`` and never a call."""
+    if warm:
+        sync(fn())
+    ts = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            out = fn()
+        sync(out)
+        ts.append((time.perf_counter() - t0) / frames)
+    return ts
+
+
+def median_time(fn, frames: int, batches: int = 3) -> float:
+    """Median over ``batch_times``' batches: seconds a call of ``fn``."""
+    return statistics.median(batch_times(fn, frames, batches))
 
 
 @dataclass

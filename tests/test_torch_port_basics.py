@@ -104,12 +104,26 @@ PORT_MODULES = [
     "mri_raytracer_tpu_torch.parallel.mesh",
     "mri_raytracer_tpu_torch.parallel.training",
     "mri_raytracer_tpu_torch.parallel.render",
+    "mri_raytracer_tpu_torch.render.widgets",
+    "mri_raytracer_tpu_torch.apps.neural_psnr_cert",
+    "mri_raytracer_tpu_torch.apps.bench_neural_march",
+    "mri_raytracer_tpu_torch.apps.orbit_video",
+    "mri_raytracer_tpu_torch.apps.demo_end_to_end",
+    "mri_raytracer_tpu_torch.apps.full_geometry_smoke",
+    "mri_raytracer_tpu_torch.apps.read_npz",
+    "mri_raytracer_tpu_torch.apps.roi_report",
+    "mri_raytracer_tpu_torch.apps.roi_showcase_figures",
+    "mri_raytracer_tpu_torch.apps.bench_roi_overhead",
+    "mri_raytracer_tpu_torch.apps.roi_retime",
+    "mri_raytracer_tpu_torch.apps.roi_occupancy_bound",
 ]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, and chip_smoke.py, imports cleanly in a fresh
-    interpreter without pulling in jax or mri_raytracer_tpu."""
+    interpreter without pulling in jax or mri_raytracer_tpu; nor, the
+    notebook viewers included, ipywidgets or IPython (``show()`` imports
+    them)."""
     code = (
         "import importlib, sys, runpy\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -117,7 +131,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"runpy.run_path({str(REPO / 'chip_smoke.py')!r}, run_name='x')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'mri_raytracer_tpu'\n"
-        "       or m.startswith('mri_raytracer_tpu.')]\n"
+        "       or m.startswith('mri_raytracer_tpu.')\n"
+        "       or m.split('.')[0] in ('ipywidgets', 'IPython')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
