@@ -51,6 +51,7 @@ import torch
 
 from mri_raytracer_tpu_torch.ops import kernels, shearwarp as sw
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
+from mri_raytracer_tpu_torch.utils import profiling
 
 _F32 = torch.float32
 # Columns of the (K, 7) plane table ``pp``: off_a, sc_a, off_b, sc_b, lam,
@@ -199,76 +200,81 @@ def composite_planes(t1b, seg_rows, pred_rows, pp, scalars, lut, vmag,
     the kernel for CUDA tensors, runs the plain version for CPU tensors.
     K1 has no backward: on the card it refuses inputs that require grad
     while grad is enabled."""
-    if t1b.dim() != 3:
-        raise ValueError(f"t1b must be (K, Na, O), got {tuple(t1b.shape)}")
-    K, Na, O = t1b.shape
-    dev = t1b.device
-    checks = [("t1b", t1b, torch.bfloat16, (K, Na, O)),
-              ("pp", pp, _F32, (K, 7)), ("scalars", scalars, _F32, (16,)),
-              ("lut", lut, _F32, (8, 4)), ("vmag", vmag, _F32, (O, O)),
-              ("dt_map", dt_map, _F32, (O, O)), ("r_map", r_map, _F32, (O, O))]
-    for name, rows in (("seg_rows", seg_rows), ("pred_rows", pred_rows)):
-        if rows is not None:
-            checks.append((name, rows, torch.uint8, (K, Na, O)))
-    S, Kf = int(field_stride), int(field_kstride)
-    Op = 0
-    if pred_field is not None:
-        if pred_rows is not None:
-            raise ValueError("pred_field and pred_rows are exclusive")
-        if S < 1 or Kf < 1 or O % S:
-            raise ValueError(f"field_stride {S} must divide O = {O} and "
-                             f"field_kstride {Kf} be >= 1")
-        Op = O // S
-        checks.append(("pred_field", pred_field, torch.uint8,
-                       (-(-K // Kf), Op, Op)))
-    for name, t, dtype, shape in checks:
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, t1b on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if dev.type == "cpu":
-        out = composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars,
-                                     lut, vmag, dt_map, r_map, use_gamma,
-                                     use_clip, pred_field, S, Kf)
-        return out[:3] if count_planes else out[:2]
-    if dev.type != "cuda":
-        raise RuntimeError(f"no compositor for device {dev}")
-    kernels.refuse_grad("composite_planes (kernel K1)",
-                        *(t for _, t, _, _ in checks))
-    for name, t, _, _ in checks:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if _SMEM_RING + K * _SMEM_PLANE > _SMEM_MAX:
-        raise ValueError(f"{K} planes need {_SMEM_RING + K * _SMEM_PLANE} "
-                         f"bytes of shared memory, over the {_SMEM_MAX} a "
-                         "block may have")
+    with profiling.span("k1"):
+        if t1b.dim() != 3:
+            raise ValueError(f"t1b must be (K, Na, O), got {tuple(t1b.shape)}")
+        K, Na, O = t1b.shape
+        dev = t1b.device
+        checks = [("t1b", t1b, torch.bfloat16, (K, Na, O)),
+                  ("pp", pp, _F32, (K, 7)), ("scalars", scalars, _F32, (16,)),
+                  ("lut", lut, _F32, (8, 4)), ("vmag", vmag, _F32, (O, O)),
+                  ("dt_map", dt_map, _F32, (O, O)),
+                  ("r_map", r_map, _F32, (O, O))]
+        for name, rows in (("seg_rows", seg_rows), ("pred_rows", pred_rows)):
+            if rows is not None:
+                checks.append((name, rows, torch.uint8, (K, Na, O)))
+        S, Kf = int(field_stride), int(field_kstride)
+        Op = 0
+        if pred_field is not None:
+            if pred_rows is not None:
+                raise ValueError("pred_field and pred_rows are exclusive")
+            if S < 1 or Kf < 1 or O % S:
+                raise ValueError(f"field_stride {S} must divide O = {O} and "
+                                 f"field_kstride {Kf} be >= 1")
+            Op = O // S
+            checks.append(("pred_field", pred_field, torch.uint8,
+                           (-(-K // Kf), Op, Op)))
+        for name, t, dtype, shape in checks:
+            if t.device != dev:
+                raise ValueError(f"{name} on {t.device}, t1b on {dev}")
+            if t.dtype != dtype:
+                raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got "
+                                 f"{tuple(t.shape)}")
+        if dev.type == "cpu":
+            out = composite_planes_plain(t1b, seg_rows, pred_rows, pp, scalars,
+                                         lut, vmag, dt_map, r_map, use_gamma,
+                                         use_clip, pred_field, S, Kf)
+            return out[:3] if count_planes else out[:2]
+        if dev.type != "cuda":
+            raise RuntimeError(f"no compositor for device {dev}")
+        kernels.refuse_grad("composite_planes (kernel K1)",
+                            *(t for _, t, _, _ in checks))
+        for name, t, _, _ in checks:
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if _SMEM_RING + K * _SMEM_PLANE > _SMEM_MAX:
+            raise ValueError(f"{K} planes need {_SMEM_RING + K * _SMEM_PLANE} "
+                             f"bytes of shared memory, over the {_SMEM_MAX} a "
+                             "block may have")
 
-    fn = kernels.function("composite", "mrt_composite", [
-        ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    lut8 = sw._label_table(lut).to(_F32).contiguous()
-    C = torch.empty((O, O, 3), dtype=_F32, device=dev)
-    T = torch.empty((O, O), dtype=_F32, device=dev)
-    planes = torch.empty((O, O), dtype=torch.int32, device=dev) \
-        if count_planes else None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(t1b.data_ptr(), ptr(seg_rows), ptr(pred_rows),
-                 ptr(pred_field), pp.data_ptr(), scalars.data_ptr(),
-                 lut8.data_ptr(), vmag.data_ptr(), dt_map.data_ptr(),
-                 r_map.data_ptr(), C.data_ptr(), T.data_ptr(), ptr(planes),
-                 K, Na, O, S, Kf, Op, int(use_gamma), int(use_clip), stream)
-    if err != 0:
-        raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
-    composite_planes.launches += 1
-    if pred_field is not None:
-        composite_planes.field_launches += 1
-    if count_planes:
-        composite_planes.count_launches += 1
-        return C, T, planes
-    return C, T
+        fn = kernels.function("composite", "mrt_composite", [
+            ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lut8 = sw._label_table(lut).to(_F32).contiguous()
+        C = torch.empty((O, O, 3), dtype=_F32, device=dev)
+        T = torch.empty((O, O), dtype=_F32, device=dev)
+        planes = torch.empty((O, O), dtype=torch.int32, device=dev) \
+            if count_planes else None
+        ptr = lambda t: None if t is None else t.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(t1b.data_ptr(), ptr(seg_rows), ptr(pred_rows),
+                     ptr(pred_field), pp.data_ptr(), scalars.data_ptr(),
+                     lut8.data_ptr(), vmag.data_ptr(), dt_map.data_ptr(),
+                     r_map.data_ptr(), C.data_ptr(), T.data_ptr(), ptr(planes),
+                     K, Na, O, S, Kf, Op, int(use_gamma), int(use_clip),
+                     stream)
+        if err != 0:
+            raise RuntimeError("composite kernel launch failed: cudaError "
+                               f"{err}")
+        composite_planes.launches += 1
+        if pred_field is not None:
+            composite_planes.field_launches += 1
+        if count_planes:
+            composite_planes.count_launches += 1
+            return C, T, planes
+        return C, T
 
 
 # Launches of the kernel, and of those the ones with a field (K1b) and the
@@ -362,46 +368,50 @@ def stage1(mixed_s: torch.Tensor, seg_s: Optional[torch.Tensor],
            p: BratsRenderParams, axis: int, out_res: int, z_offset=None,
            nk_global: Optional[int] = None) -> K1Inputs:
     """Plane table, b-axis bf16 resample and label rows for one frame."""
-    Nk, Na, Nb = mixed_s.shape
-    n_planes = Nk + 1
-    nk_g = nk_global if nk_global is not None else Nk
+    with profiling.span("stage1"):
+        Nk, Na, Nb = mixed_s.shape
+        n_planes = Nk + 1
+        nk_g = nk_global if nk_global is not None else Nk
 
-    # ---------------- per-plane geometry in sweep order
-    z, z_glob, lam, off_a, sc_a, off_b, sc_b = sw.sweep_plane_affines(
-        geom, p, axis, n_planes, z_offset=z_offset)
-    acl, ach, acn, aml, amh = sw._geom_bounds(geom, 0, Na)
-    bcl, bch, bcn, bml, bmh = sw._geom_bounds(geom, 1, Nb)
-    # Plane ownership: a slab owns its closing plane only when it holds
-    # the volume end.
-    own = ((z < Nk - 1e-6) | (z_glob >= nk_g - 1e-6)).to(_F32)
-    # Plane position in per-ray dt units: t_k/dt = lam * |w_base - e_k|/vox_k
-    # (vmag cancels, so it is a per-plane scalar).
-    vox_k = sw._permute3(p.voxel_size, axis)[0]
-    qfac = torch.abs(geom.w_base - geom.e[0]) / torch.clamp(vox_k, min=1e-6)
-    pp = torch.stack([off_a, sc_a, off_b, sc_b, lam, own, lam * qfac],
-                     dim=-1).contiguous()
-    near = torch.clamp(p.near, min=0.0)
-    r_map = sw.entry_ratio_map(geom, near, geom.dt_map)
+        # ---------------- per-plane geometry in sweep order
+        z, z_glob, lam, off_a, sc_a, off_b, sc_b = sw.sweep_plane_affines(
+            geom, p, axis, n_planes, z_offset=z_offset)
+        acl, ach, acn, aml, amh = sw._geom_bounds(geom, 0, Na)
+        bcl, bch, bcn, bml, bmh = sw._geom_bounds(geom, 1, Nb)
+        # Plane ownership: a slab owns its closing plane only when it holds
+        # the volume end.
+        own = ((z < Nk - 1e-6) | (z_glob >= nk_g - 1e-6)).to(_F32)
+        # Plane position in per-ray dt units:
+        # t_k/dt = lam * |w_base - e_k|/vox_k
+        # (vmag cancels, so it is a per-plane scalar).
+        vox_k = sw._permute3(p.voxel_size, axis)[0]
+        qfac = torch.abs(geom.w_base - geom.e[0]) / torch.clamp(vox_k,
+                                                                min=1e-6)
+        pp = torch.stack([off_a, sc_a, off_b, sc_b, lam, own, lam * qfac],
+                         dim=-1).contiguous()
+        near = torch.clamp(p.near, min=0.0)
+        r_map = sw.entry_ratio_map(geom, near, geom.dt_map)
 
-    # ---------------- stage 1: b-axis halves, bf16
-    zi = torch.clamp(z, 0.0, Nk - 1).long()
-    slices = mixed_s.index_select(0, zi).to(torch.bfloat16)  # (K, Na, Nb)
-    Wb, _ = sw._batched_hat(off_b, sc_b, Nb, out_res, bcl, bch, bml, bmh,
-                            dtype=torch.bfloat16)  # (K, O, Nb)
-    t1b = torch.bmm(slices, Wb.transpose(1, 2))  # (K, Na, O) bf16
-    seg_rows = None if seg_s is None else \
-        nearest_rows(seg_s, zi, off_b, sc_b, out_res, bcl, bcn)
-    pred_rows = None if pred_s is None else \
-        nearest_rows(pred_s, zi, off_b, sc_b, out_res, bcl, bcn)
+        # ---------------- stage 1: b-axis halves, bf16
+        zi = torch.clamp(z, 0.0, Nk - 1).long()
+        slices = mixed_s.index_select(0, zi).to(torch.bfloat16)  # (K, Na, Nb)
+        Wb, _ = sw._batched_hat(off_b, sc_b, Nb, out_res, bcl, bch, bml, bmh,
+                                dtype=torch.bfloat16)  # (K, O, Nb)
+        t1b = torch.bmm(slices, Wb.transpose(1, 2))  # (K, Na, O) bf16
+        seg_rows = None if seg_s is None else \
+            nearest_rows(seg_s, zi, off_b, sc_b, out_res, bcl, bcn)
+        pred_rows = None if pred_s is None else \
+            nearest_rows(pred_s, zi, off_b, sc_b, out_res, bcl, bcn)
 
-    far = sw._where(p.far > 0.0, p.far, 3e38)
-    scalars = torch.stack([
-        p.ww, p.wl, p.gamma, p.intensity_alpha, near, far,
-        (p.show_seg > 0).to(_F32), (p.show_pred > 0).to(_F32),
-        bml, bmh, acl, ach, acn, aml, amh, torch.zeros_like(p.ww)]).to(_F32)
-    return K1Inputs(t1b, seg_rows, pred_rows, pp, scalars, p.lut.to(_F32),
-                    geom.vmag.contiguous(), geom.dt_map.contiguous(),
-                    r_map.contiguous())
+        far = sw._where(p.far > 0.0, p.far, 3e38)
+        scalars = torch.stack([
+            p.ww, p.wl, p.gamma, p.intensity_alpha, near, far,
+            (p.show_seg > 0).to(_F32), (p.show_pred > 0).to(_F32),
+            bml, bmh, acl, ach, acn, aml, amh,
+            torch.zeros_like(p.ww)]).to(_F32)
+        return K1Inputs(t1b, seg_rows, pred_rows, pp, scalars, p.lut.to(_F32),
+                        geom.vmag.contiguous(), geom.dt_map.contiguous(),
+                        r_map.contiguous())
 
 
 def field_labels(field: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 import torch
 
 from mri_raytracer_tpu_torch.env import nvcc_path
+from mri_raytracer_tpu_torch.utils import profiling
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -43,12 +44,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile every named source whose library is missing, one ``nvcc``
     per source, all started together. Returns ``{name: (seconds, nvcc
     output)}`` for the sources it compiled (``-Xptxas -v`` reports
-    registers, shared memory and spills). Raises if ``nvcc`` is missing or
-    fails."""
+    registers, shared memory and spills), and adds them and the call's
+    seconds to the counters ``kernels.builds`` and ``kernels.build_s``.
+    Raises if ``nvcc`` is missing or fails."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     jobs = {}
     for name in names:
         so = library_path(name)
@@ -76,6 +79,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    if done:
+        profiling.count("kernels.builds", len(done))
+        profiling.count("kernels.build_s", time.perf_counter() - t0)
     return done
 
 

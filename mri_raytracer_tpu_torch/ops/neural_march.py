@@ -33,9 +33,11 @@ import torch
 from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.models.api import ModelBundle
 from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw
+from mri_raytracer_tpu_torch.render import brats as brats_render
 from mri_raytracer_tpu_torch.render.brats import BratsRenderer
 from mri_raytracer_tpu_torch.render.camera import CameraBasis
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
+from mri_raytracer_tpu_torch.utils import profiling
 
 _F32 = torch.float32
 # Sweep axis -> for each of (x, y, z), its position among (k, a, b).
@@ -176,6 +178,50 @@ def bake_labels(model: ModelBundle, params, modsz: torch.Tensor,
     return torch.cat(out).to(torch.int32)
 
 
+def resample_block(modsz_s: torch.Tensor, zi: torch.Tensor, oa, sa, ob, sb,
+                   stride: int, Op: int, a_bounds, b_bounds) -> torch.Tensor:
+    """(B, Op, Op, M) z-scored intensities of B sweep planes (``zi``: their
+    slices of ``modsz_s``, (M, K, Na, Nb)) at the stride-``stride`` grid of
+    the intermediate image: the separable hat matrices of the planes'
+    affines (``oa``, ``sa``, ``ob``, ``sb``, (B,) each) under the geometry's
+    clamps (``a_bounds``, ``b_bounds``), applied as two bf16 products."""
+    with profiling.span("predict_field.resample"):
+        _, _, Na, Nb = modsz_s.shape
+        Wa, _ = sw._batched_hat(oa, sa * stride, Na, Op, *a_bounds)
+        Wb, _ = sw._batched_hat(ob, sb * stride, Nb, Op, *b_bounds)
+        sl = modsz_s.index_select(1, zi)  # (M, B, Na, Nb)
+        t1 = _bf16(Wa)[None] @ _bf16(sl)  # (M, B, Op, Nb)
+        v = _bf16(t1) @ _bf16(Wb).transpose(1, 2)[None]  # (M, B, Op, Op)
+        return v.permute(1, 2, 3, 0)
+
+
+def mlp_block(model: ModelBundle, params, intens: torch.Tensor,
+              a_n: torch.Tensor, b_n: torch.Tensor, k_n: torch.Tensor,
+              inv_order) -> torch.Tensor:
+    """(B, Op, Op) INR labels of B sweep planes' strided samples: the
+    argmax of the MLP over their intensities ``intens`` (B, Op, Op, M) and
+    normalized global coordinates, ``a_n`` (B, Op) along the rows, ``b_n``
+    (B, Op) along the columns and ``k_n`` (B,) along the sweep
+    (``inv_order``: for each of x, y, z its position among k, a, b)."""
+    with profiling.span("predict_field.mlp"):
+        B, Op = a_n.shape
+        M = intens.shape[-1]
+        if model_is_separable(model):
+            row, col, const, W1_int = _separable_first_layer_batched(
+                params, model.cfg.fourier_freqs, M, a_n, b_n, k_n,
+                inv_order)
+            h = _first_hidden(row, col, const, intens, W1_int)
+            logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
+        else:
+            per_axis = (k_n[:, None, None].expand(B, Op, Op),
+                        a_n[:, :, None].expand(B, Op, Op),
+                        b_n[:, None, :].expand(B, Op, Op))
+            coords = torch.stack([per_axis[o] for o in inv_order], dim=-1)
+            logits = model.apply(params, coords.reshape(-1, 3),
+                                 intens.reshape(-1, M))
+        return torch.argmax(logits, dim=-1).reshape(-1, Op, Op)
+
+
 @torch.no_grad()
 def predict_field(model: ModelBundle, params, modsz_s: torch.Tensor,
                   geom: sw.SweepGeom, p: BratsRenderParams, axis: int,
@@ -188,80 +234,65 @@ def predict_field(model: ModelBundle, params, modsz_s: torch.Tensor,
     Op = out_res // stride, in SWEEP order (plane m * kstride, flip
     applied): the field K1b composites (plane m reads row m // kstride).
     Per block of planes, the z-scored modalities are resampled by the
-    separable hat products at the strided grid and the MLP runs as one
-    (B*Op*Op, H) batch.
+    separable hat products at the strided grid (``resample_block``) and
+    the MLP runs as one (B*Op*Op, H) batch (``mlp_block``); each block
+    adds its B*Op*Op samples to the counter ``field.points``.
 
     ``modsz_s``: (M, K, Na, Nb) permuted (and possibly content-cropped)
     z-scored modalities; the crop contract matches
     ``shearwarp.render_prepared`` (``z_offset``/``nk_global`` + geom's
     in-plane offsets). Coordinates are normalized GLOBAL indices.
     """
-    M, Nk, Na, Nb = modsz_s.shape
-    Op = out_res // stride
-    if Op * stride != out_res:
-        raise ValueError(f"stride {stride} must divide out_res {out_res}")
-    dev = modsz_s.device
-    nk_g = nk_global if nk_global is not None else Nk
-    n_all = Nk + 1
+    with profiling.span("predict_field"):
+        M, Nk, Na, Nb = modsz_s.shape
+        Op = out_res // stride
+        if Op * stride != out_res:
+            raise ValueError(f"stride {stride} must divide out_res "
+                             f"{out_res}")
+        dev = modsz_s.device
+        nk_g = nk_global if nk_global is not None else Nk
+        n_all = Nk + 1
 
-    # The compositor's plane affines, in sweep order.
-    z, z_glob, _, off_a, sc_a, off_b, sc_b = sw.sweep_plane_affines(
-        geom, p, axis, n_all, z_offset=z_offset)
-    n_planes = -(-n_all // kstride)
-    if kstride > 1:
-        ms = torch.clamp(torch.arange(n_planes, device=dev) * kstride,
-                         max=n_all - 1)
-        z, z_glob, off_a, sc_a, off_b, sc_b = (
-            t[ms] for t in (z, z_glob, off_a, sc_a, off_b, sc_b))
-    zi = torch.clamp(z, 0.0, Nk - 1).long()
+        # The compositor's plane affines, in sweep order.
+        z, z_glob, _, off_a, sc_a, off_b, sc_b = sw.sweep_plane_affines(
+            geom, p, axis, n_all, z_offset=z_offset)
+        n_planes = -(-n_all // kstride)
+        if kstride > 1:
+            ms = torch.clamp(torch.arange(n_planes, device=dev) * kstride,
+                             max=n_all - 1)
+            z, z_glob, off_a, sc_a, off_b, sc_b = (
+                t[ms] for t in (z, z_glob, off_a, sc_a, off_b, sc_b))
+        zi = torch.clamp(z, 0.0, Nk - 1).long()
 
-    acl, ach, _, aml, amh = sw._geom_bounds(geom, 0, Na)
-    bcl, bch, _, bml, bmh = sw._geom_bounds(geom, 1, Nb)
+        acl, ach, _, aml, amh = sw._geom_bounds(geom, 0, Na)
+        bcl, bch, _, bml, bmh = sw._geom_bounds(geom, 1, Nb)
 
-    # Global dims along (k, a, b); na_g < 0 means uncropped.
-    inv_order = _INV_ORDER[axis]
-    na_gf = sw._where(geom.na_g < 0, float(Na), geom.na_g)
-    nb_gf = sw._where(geom.nb_g < 0, float(Nb), geom.nb_g)
-    dims_g = (torch.tensor(float(nk_g), device=dev), na_gf, nb_gf)
+        # Global dims along (k, a, b); na_g < 0 means uncropped.
+        inv_order = _INV_ORDER[axis]
+        na_gf = sw._where(geom.na_g < 0, float(Na), geom.na_g)
+        nb_gf = sw._where(geom.nb_g < 0, float(Nb), geom.nb_g)
+        dims_g = (torch.tensor(float(nk_g), device=dev), na_gf, nb_gf)
 
-    def norm(t, d):
-        return (t / (d - 1.0)) * 2.0 - 1.0
+        def norm(t, d):
+            return (t / (d - 1.0)) * 2.0 - 1.0
 
-    separable = model_is_separable(model)
-    K = model.cfg.fourier_freqs
-    iis = torch.arange(Op, dtype=_F32, device=dev) * stride
-    fields = []
-    for m0 in range(0, n_planes, block):
-        sl_m = slice(m0, min(m0 + block, n_planes))
-        oa, sa, ob, sb = off_a[sl_m], sc_a[sl_m], off_b[sl_m], sc_b[sl_m]
-        Wa, _ = sw._batched_hat(oa, sa * stride, Na, Op, acl, ach, aml, amh)
-        Wb, _ = sw._batched_hat(ob, sb * stride, Nb, Op, bcl, bch, bml, bmh)
-        sl = modsz_s.index_select(1, zi[sl_m])  # (M, B, Na, Nb)
-        t1 = _bf16(Wa)[None] @ _bf16(sl)  # (M, B, Op, Nb)
-        v = _bf16(t1) @ _bf16(Wb).transpose(1, 2)[None]  # (M, B, Op, Op)
-        intens = v.permute(1, 2, 3, 0)  # (B, Op, Op, M)
-
-        pos_a_g = oa[:, None] + iis[None, :] * sa[:, None] + geom.a_off
-        pos_b_g = ob[:, None] + iis[None, :] * sb[:, None] + geom.b_off
-        z_g = z_glob[sl_m]
-        if separable:
-            row, col, const, W1_int = _separable_first_layer_batched(
-                params, K, M, norm(pos_a_g, dims_g[1]),
-                norm(pos_b_g, dims_g[2]), norm(z_g, dims_g[0]), inv_order)
-            h = _first_hidden(row, col, const, intens, W1_int)
-            logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
-        else:
-            B = z_g.shape[0]
-            perm_idx = (z_g[:, None, None].expand(B, Op, Op),
-                        pos_a_g[:, :, None].expand(B, Op, Op),
-                        pos_b_g[:, None, :].expand(B, Op, Op))
-            xyz = torch.stack([perm_idx[o] for o in inv_order], dim=-1)
-            dims_xyz = torch.stack([dims_g[o] for o in inv_order])
-            coords = (xyz / (dims_xyz - 1.0)) * 2.0 - 1.0
-            logits = model.apply(params, coords.reshape(-1, 3),
-                                 intens.reshape(-1, M))
-        fields.append(torch.argmax(logits, dim=-1).reshape(-1, Op, Op))
-    return torch.cat(fields).to(torch.int32)
+        iis = torch.arange(Op, dtype=_F32, device=dev) * stride
+        fields = []
+        for m0 in range(0, n_planes, block):
+            m1 = min(m0 + block, n_planes)
+            oa, sa = off_a[m0:m1], sc_a[m0:m1]
+            ob, sb = off_b[m0:m1], sc_b[m0:m1]
+            intens = resample_block(modsz_s, zi[m0:m1], oa, sa, ob, sb,
+                                    stride, Op, (acl, ach, aml, amh),
+                                    (bcl, bch, bml, bmh))
+            pos_a_g = oa[:, None] + iis[None, :] * sa[:, None] + geom.a_off
+            pos_b_g = ob[:, None] + iis[None, :] * sb[:, None] + geom.b_off
+            fields.append(mlp_block(
+                model, params, intens, norm(pos_a_g, dims_g[1]),
+                norm(pos_b_g, dims_g[2]), norm(z_glob[m0:m1], dims_g[0]),
+                inv_order))
+            profiling.count("field.points", (m1 - m0) * Op * Op)
+        return torch.cat(fields).to(torch.int32)
 
 
 class NeuralFrame(NamedTuple):
@@ -446,24 +477,26 @@ class NeuralBratsRenderer:
     def render(self, basis: CameraBasis, p: BratsRenderParams
                ) -> torch.Tensor:
         """(H, W, 3) float32 frame on the renderer's device."""
-        if self.backend == "rebake":
-            if self._dirty:
-                self.brats.set_prediction(
-                    bake_labels(self.model, self.params, self.modsz))
-                self._dirty = False
-            return self.brats.render(basis, p)
-        if self.backend == "scan":
-            return render_brats_neural(
-                self.mods, self.modsz, self.seg, self.model, self.params,
-                basis, p, self.width, self.height, out_res=self.sweep_res,
-                pred_stride=self.stride, pred_kstride=self.kstride,
-                device=self.device)
-        fr = self.sweep_frame(basis, p)
-        C = _render_neural_fused(fr, self.model, self.params, self.stride,
-                                 self.kstride)
-        return sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis, self.width,
-                                 self.height, fr.p.bg_color)
+        with profiling.frame():
+            if self.backend == "rebake":
+                if self._dirty:
+                    self.brats.set_prediction(
+                        bake_labels(self.model, self.params, self.modsz))
+                    self._dirty = False
+                return self.brats.render(basis, p)
+            if self.backend == "scan":
+                return render_brats_neural(
+                    self.mods, self.modsz, self.seg, self.model, self.params,
+                    basis, p, self.width, self.height,
+                    out_res=self.sweep_res, pred_stride=self.stride,
+                    pred_kstride=self.kstride, device=self.device)
+            fr = self.sweep_frame(basis, p)
+            C = _render_neural_fused(fr, self.model, self.params,
+                                     self.stride, self.kstride)
+            return sw.warp_to_screen(C, fr.geom, fr.basis, fr.axis,
+                                     self.width, self.height, fr.p.bg_color)
 
     def render_numpy(self, basis: CameraBasis, p: BratsRenderParams
                      ) -> np.ndarray:
-        return self.render(basis, p).cpu().numpy()
+        with profiling.frame():
+            return brats_render.present(self.render(basis, p))

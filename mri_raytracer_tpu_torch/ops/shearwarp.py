@@ -46,6 +46,7 @@ from mri_raytracer_tpu_torch.ops import warp
 from mri_raytracer_tpu_torch.ops.raymarch import blend_modalities
 from mri_raytracer_tpu_torch.render.camera import CameraBasis
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
+from mri_raytracer_tpu_torch.utils import profiling
 
 _EPS = 1e-6
 _ORDER = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
@@ -617,16 +618,18 @@ def content_geometry(basis, p, dims_local, axis, out_res, width, height,
                      inplane_global=None) -> SweepGeom:
     """Sweep geometry for (possibly cropped/slabbed) prepared volumes: the
     single source of the content-box contract. Offsets are host ints."""
-    Kl, Nal, Nbl = dims_local
-    nk = nk_global if nk_global is not None else Kl
-    na_g, nb_g = inplane_global if inplane_global is not None else (Nal, Nbl)
-    z0 = 0.0 if z_offset is None else float(z_offset)
-    a_lo, b_lo = (0.0, 0.0) if ab_offset is None \
-        else (float(ab_offset[0]), float(ab_offset[1]))
-    k_hi = z0 + Kl if z_offset is not None else float(nk)
-    return sweep_geometry(basis, p, (nk, na_g, nb_g), axis, out_res,
-                          (z0, a_lo, b_lo), (k_hi, a_lo + Nal, b_lo + Nbl),
-                          frustum_wh=(width, height))
+    with profiling.span("content_geometry"):
+        Kl, Nal, Nbl = dims_local
+        nk = nk_global if nk_global is not None else Kl
+        na_g, nb_g = inplane_global if inplane_global is not None \
+            else (Nal, Nbl)
+        z0 = 0.0 if z_offset is None else float(z_offset)
+        a_lo, b_lo = (0.0, 0.0) if ab_offset is None \
+            else (float(ab_offset[0]), float(ab_offset[1]))
+        k_hi = z0 + Kl if z_offset is not None else float(nk)
+        return sweep_geometry(basis, p, (nk, na_g, nb_g), axis, out_res,
+                              (z0, a_lo, b_lo), (k_hi, a_lo + Nal, b_lo + Nbl),
+                              frustum_wh=(width, height))
 
 
 def crop_out_res(base_res: int, crops, dims_perm):

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from mri_raytracer_tpu_torch.ops import kernels
+from mri_raytracer_tpu_torch.utils import profiling
 
 _EPS = 1e-6
 _ORDER = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
@@ -113,32 +114,34 @@ def warp_screen(C: torch.Tensor, s: torch.Tensor, axis: int, width: int,
     Launches K2 for CUDA tensors, runs the plain version for CPU tensors.
     K2 has no backward: on the card it refuses inputs that require grad
     while grad is enabled."""
-    if C.dim() != 3 or C.shape[0] != C.shape[1] or C.shape[2] != 3 \
-            or C.shape[0] < 2:
-        raise ValueError(f"C must be (O, O, 3) with O >= 2, got {tuple(C.shape)}")
-    if s.shape != (N_SCALARS,):
-        raise ValueError(f"s must be ({N_SCALARS},), got {tuple(s.shape)}")
-    if C.device != s.device:
-        raise ValueError(f"C on {C.device} but s on {s.device}")
-    if C.dtype != _F32 or s.dtype != _F32:
-        raise TypeError("C and s must be float32")
-    if axis not in _ORDER:
-        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
-    if C.device.type == "cpu":
-        return warp_screen_plain(C, s, axis, width, height)
-    if C.device.type != "cuda":
-        raise RuntimeError(f"no warp for device {C.device}")
-    kernels.refuse_grad("warp_screen (kernel K2)", C, s)
-    if not (C.is_contiguous() and s.is_contiguous()):
-        raise ValueError("C and s must be contiguous")
-    index = C.device.index
-    if index == torch.cuda.current_device():
-        out = _launch(C, s, axis, width, height, index)
-    else:
-        with torch.cuda.device(index):
+    with profiling.span("k2"):
+        if C.dim() != 3 or C.shape[0] != C.shape[1] or C.shape[2] != 3 \
+                or C.shape[0] < 2:
+            raise ValueError("C must be (O, O, 3) with O >= 2, got "
+                             f"{tuple(C.shape)}")
+        if s.shape != (N_SCALARS,):
+            raise ValueError(f"s must be ({N_SCALARS},), got {tuple(s.shape)}")
+        if C.device != s.device:
+            raise ValueError(f"C on {C.device} but s on {s.device}")
+        if C.dtype != _F32 or s.dtype != _F32:
+            raise TypeError("C and s must be float32")
+        if axis not in _ORDER:
+            raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+        if C.device.type == "cpu":
+            return warp_screen_plain(C, s, axis, width, height)
+        if C.device.type != "cuda":
+            raise RuntimeError(f"no warp for device {C.device}")
+        kernels.refuse_grad("warp_screen (kernel K2)", C, s)
+        if not (C.is_contiguous() and s.is_contiguous()):
+            raise ValueError("C and s must be contiguous")
+        index = C.device.index
+        if index == torch.cuda.current_device():
             out = _launch(C, s, axis, width, height, index)
-    warp_screen.launches += 1
-    return out
+        else:
+            with torch.cuda.device(index):
+                out = _launch(C, s, axis, width, height, index)
+        warp_screen.launches += 1
+        return out
 
 
 def current_stream_handle(index: int) -> int:

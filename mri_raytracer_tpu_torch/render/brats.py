@@ -26,7 +26,7 @@ from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.ops import raymarch, shearwarp
 from mri_raytracer_tpu_torch.render.camera import CameraBasis, OrbitalCamera
 from mri_raytracer_tpu_torch.render.params import BratsRenderParams
-from mri_raytracer_tpu_torch.utils.profiling import sync
+from mri_raytracer_tpu_torch.utils import profiling
 
 _BACKENDS = ("auto", "sweep", "sweep_cuda", "oracle")
 # (theta, phi) of the warm-up frames: one per sweep axis.
@@ -176,6 +176,7 @@ class BratsRenderer:
         an unchanged params tuple costs no per-frame transfer."""
         key = self._params_key(params)
         if self._p_cache[0] != key:
+            profiling.count("sweep.param_uploads")
             self._p_cache = (key, params.to(self.device),
                              *shearwarp.static_flags(params))
         return self._p_cache[1:]
@@ -184,39 +185,47 @@ class BratsRenderer:
         """Everything ``shearwarp.render_prepared`` needs for this frame
         besides the screen size and compositor: the cached prepared
         (cropped) volumes, device params, sweep axis and crop contract."""
-        p_dev, use_gamma, use_clip = self._device_params(params)
-        axis, _, dims_perm, crops, out_res, inplane_cropped = \
-            self._geometry(basis, params)
-        nk, na_g, nb_g = dims_perm
-        (k_lo, k_hi), (a_lo, _), (b_lo, _) = crops
-        # Blended+permuted volumes are camera-independent: cache per
-        # (axis, crop, blend weights); invalidated by set_prediction.
-        blend_key = (axis, tuple(crops),
-                     params.vol_enabled.cpu().numpy().tobytes(),
-                     params.vol_weight.cpu().numpy().tobytes())
-        vols = self._prep_cache.get(blend_key)
-        if vols is None:
-            extra_s = None if self.extra is None else torch.stack(
-                [shearwarp._perm_volume(v, axis) for v in self.extra])
-            vols = (*shearwarp.prepare_sweep_volumes(
-                self.mods, self.seg, self.pred, p_dev, axis), extra_s)
-            for dim, (lo, hi) in enumerate(crops):
-                if (lo, hi) != (0, dims_perm[dim]):
-                    # The crop applies to each volume's last three dims.
-                    vols = tuple(None if v is None
-                                 else v.narrow(v.dim() - 3 + dim, lo, hi - lo)
-                                 for v in vols)
-            vols = tuple(None if v is None else v.contiguous() for v in vols)
-            self._prep_cache[blend_key] = vols
-        mixed_s, seg_s, pred_s, extra_s = vols
-        slab = (k_lo, k_hi) != (0, nk)
-        return SweepFrame(
-            mixed_s, seg_s, pred_s, basis.to(self.device), p_dev, axis,
-            out_res, use_gamma, use_clip, z_offset=k_lo if slab else None,
-            nk_global=nk if slab else None,
-            ab_offset=(a_lo, b_lo) if inplane_cropped else None,
-            inplane_global=(na_g, nb_g) if inplane_cropped else None,
-            extra_s=extra_s)
+        with profiling.span("sweep_frame"):
+            p_dev, use_gamma, use_clip = self._device_params(params)
+            axis, _, dims_perm, crops, out_res, inplane_cropped = \
+                self._geometry(basis, params)
+            nk, na_g, nb_g = dims_perm
+            (k_lo, k_hi), (a_lo, _), (b_lo, _) = crops
+            # Blended+permuted volumes are camera-independent: cache per
+            # (axis, crop, blend weights); invalidated by set_prediction.
+            blend_key = (axis, tuple(crops),
+                         params.vol_enabled.cpu().numpy().tobytes(),
+                         params.vol_weight.cpu().numpy().tobytes())
+            vols = self._prep_cache.get(blend_key)
+            if vols is None:
+                profiling.count("sweep.prep_misses")
+                with profiling.span("prepare"):
+                    vols = self._prepare(p_dev, axis, crops, dims_perm)
+                self._prep_cache[blend_key] = vols
+            mixed_s, seg_s, pred_s, extra_s = vols
+            slab = (k_lo, k_hi) != (0, nk)
+            return SweepFrame(
+                mixed_s, seg_s, pred_s, basis.to(self.device), p_dev, axis,
+                out_res, use_gamma, use_clip, z_offset=k_lo if slab else None,
+                nk_global=nk if slab else None,
+                ab_offset=(a_lo, b_lo) if inplane_cropped else None,
+                inplane_global=(na_g, nb_g) if inplane_cropped else None,
+                extra_s=extra_s)
+
+    def _prepare(self, p_dev, axis: int, crops, dims_perm) -> tuple:
+        """The blended, permuted and cropped volumes of one sweep axis
+        (and the ``extra`` volumes alike)."""
+        extra_s = None if self.extra is None else torch.stack(
+            [shearwarp._perm_volume(v, axis) for v in self.extra])
+        vols = (*shearwarp.prepare_sweep_volumes(
+            self.mods, self.seg, self.pred, p_dev, axis), extra_s)
+        for dim, (lo, hi) in enumerate(crops):
+            if (lo, hi) != (0, dims_perm[dim]):
+                # The crop applies to each volume's last three dims.
+                vols = tuple(None if v is None
+                             else v.narrow(v.dim() - 3 + dim, lo, hi - lo)
+                             for v in vols)
+        return tuple(None if v is None else v.contiguous() for v in vols)
 
     def _render_sweep(self, basis: CameraBasis, params, echo=None
                       ) -> torch.Tensor:
@@ -238,7 +247,7 @@ class BratsRenderer:
         for theta, phi in _WARMUP_POSES:
             cam = OrbitalCamera(radius=2.0, theta=theta, phi=phi)
             out = self.render(cam.basis(), params)
-        sync(out)
+        profiling.sync(out)
 
     def set_prediction(self, pred) -> None:
         """Upload an INR prediction volume (reference 'Load INR & Predict')."""
@@ -254,15 +263,16 @@ class BratsRenderer:
         syncs: the sweep axis is read from it on the host. ``_echo``:
         internal, the fused compositor's instrumentation channel (returns
         its payload instead of an image; see ``executed_planes``)."""
-        if self.backend == "oracle":
-            if _echo is not None:
-                raise ValueError("echo instrumentation requires the fused "
-                                 "compositor")
-            return raymarch.render_brats(self.mods, self.seg, self.pred,
-                                         basis, params, self.width,
-                                         self.height, self.max_steps,
-                                         device=self.device)
-        return self._render_sweep(basis, params, _echo)
+        with profiling.frame():
+            if self.backend == "oracle":
+                if _echo is not None:
+                    raise ValueError("echo instrumentation requires the "
+                                     "fused compositor")
+                return raymarch.render_brats(self.mods, self.seg, self.pred,
+                                             basis, params, self.width,
+                                             self.height, self.max_steps,
+                                             device=self.device)
+            return self._render_sweep(basis, params, _echo)
 
     def executed_planes(self, basis: CameraBasis,
                         params: BratsRenderParams) -> np.ndarray:
@@ -279,7 +289,15 @@ class BratsRenderer:
 
     def render_numpy(self, basis: CameraBasis, params: BratsRenderParams
                      ) -> np.ndarray:
-        return self.render(basis, params).cpu().numpy()
+        with profiling.frame():
+            return present(self.render(basis, params))
+
+
+def present(img: torch.Tensor) -> np.ndarray:
+    """A frame's pixels on the host: the device-to-host copy that ends
+    every ``render_numpy``."""
+    with profiling.span("present"):
+        return img.cpu().numpy()
 
 
 def orbit_frames(renderer: BratsRenderer, params: BratsRenderParams,

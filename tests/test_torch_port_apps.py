@@ -175,21 +175,13 @@ def test_png_decodes_with_pil(h, w):
 
 
 def test_fps_meter_and_timer_match_jax(monkeypatch):
-    clock = iter([0.0, 0.1, 0.15, 0.4, 0.41] * 2 + [1.0, 1.25, 2.0, 2.5] * 2)
+    clock = iter([0.0, 0.1, 0.15, 0.4, 0.41] * 2)
     monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
     rates = []
     for mod in (tprof, jprof):
         m = mod.FPSMeter(alpha=0.2)
         rates.append([m.tick() for _ in range(5)])
     assert rates[0] == rates[1] and rates[0][-1] > 0
-    reports = []
-    for mod in (tprof, jprof):
-        t = mod.Timer("frame")
-        for _ in range(2):
-            with t():
-                pass
-        reports.append((t.times, t.mean_ms, t.report()))
-    assert reports[0] == reports[1]
 
 
 def _frames(out_dir):
