@@ -65,8 +65,12 @@ CLIs. Phases:
               the fused frame against the plain scan on the same geometry
               and field at the six poses, each >= 40 dB; device and
               CUDA-event times of predict_field, stage 1, K1b, K2 and
-              bake_labels, K1b's bound; a profile of the neural frame;
-              and a few 'rebake' frames (K1 with baked-pred rows)
+              bake_labels, K1b's bound; K3 (the INR's MLP) held against
+              its plain version on the start pose's first block of planes
+              (B = 16, Op = O / 4), its device time beside its bound and the
+              plain version's, and over the orbit its launches and
+              field.kernel_points = field.points; a profile of the neural
+              frame; and a few 'rebake' frames (K1 with baked-pred rows)
   9. account  K1c held against its plain version at the start pose, C and
               T bit-equal with the counter on and off, K1's device time
               with and without it; then bench.py's accounting: ACCT_POSES
@@ -401,6 +405,12 @@ GRID_MODES = ("composite", "mip", "iso")
 # for expf/powf/tanf differing in the last bits.
 TOL = 1e-3
 PSNR_MIN_DB = 40.0
+# K3 against its plain version: a label may differ only where the plain
+# top-two logit gap is within K3_GAP of the logits' largest magnitude (the
+# two may round hidden states to neighbouring bf16 values, one step, 2^-8
+# to 2^-7 of each, apart, which the weights downstream carry to the logits:
+# labels off at gaps of up to 6.1e-3 of the scale on the card).
+K3_GAP = 2.0 ** -5
 # bench.py:108-110.
 POSES = [("orbit", 0.6, 1.2), ("face-x", 0.0, np.pi / 2),
          ("face-y", np.pi / 2, np.pi / 2), ("top", 0.3, 0.12),
@@ -849,7 +859,8 @@ def run(torch) -> int:
                 f"{n / PROFILE_FRAMES:5.1f}x  {name[:90]}")
 
     # --------------------------------------------------------- 8. neural
-    k1b_entry = neural_phase(torch, raw, mods, seg, radius, card, peaks)
+    k1b_entry, k3_entry = neural_phase(torch, raw, mods, seg, radius, card,
+                                       peaks)
 
     # ------------------------------------------------------- 9. accounting
     k1c_entry = accounting_phase(torch, renderer, p, radius, k1, flags,
@@ -893,6 +904,7 @@ def run(torch) -> int:
          "bound_by": k2_by, "library_ms": t["grid_sample"][0]},
         k1b_entry,
         k1c_entry,
+        k3_entry,
     ]}
     log("report", f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} "
         f"s, on {card}")
@@ -970,6 +982,7 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
     from mri_raytracer_tpu_torch.ops import neural_march as nm
     from mri_raytracer_tpu_torch.render import params as rp
     from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+    from mri_raytracer_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     zsc = np.stack([zscore_nonzero(m.copy()) for m in raw])
@@ -1026,6 +1039,8 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
     if n_field <= 0:
         raise RuntimeError("the field put no label on the frame")
 
+    k3_entry = k3_check(torch, model, params, fr, S, Kf, card, peaks)
+
     # The main neural path.
     cam = OrbitalCamera(radius=radius, theta=0.6, phi=1.2)
     for _ in range(NEURAL_WARMUP):
@@ -1036,6 +1051,8 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
     composite.composite_planes.launches = 0
     composite.composite_planes.field_launches = 0
     warp.warp_screen.launches = 0
+    nm.separable_mlp.launches = 0
+    points0 = profiling.counters()
     rates, frames = [], 0
     for _ in range(BATCHES):
         t0 = time.perf_counter()
@@ -1051,6 +1068,16 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
     log("neural", f"{frames} frames: launches {launches}")
     if launches != {"K1": frames, "K1b": frames, "K2": frames}:
         raise RuntimeError(f"launch counts {launches} != {frames} frames")
+    points = {k: v - points0.get(k, 0)
+              for k, v in profiling.counters().items()
+              if k in ("field.points", "field.kernel_points")}
+    k3_entry["launches"] = nm.separable_mlp.launches
+    log("neural", f"{frames} frames: K3 launches {nm.separable_mlp.launches} "
+        f"({nm.separable_mlp.launches / frames:.1f} a frame), {points}")
+    if not (nm.separable_mlp.launches >= frames and points.get(
+            "field.points", 0) > 0 and points.get("field.kernel_points")
+            == points["field.points"]):
+        raise RuntimeError(f"K3 did not label every field point: {points}")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or \
             not bool(torch.isfinite(img).all()):
         raise RuntimeError(f"bad neural frame: shape {tuple(img.shape)}")
@@ -1182,7 +1209,81 @@ def neural_phase(torch, raw, mods, seg, radius: float, card: str,
             "replaces": "mri_raytracer_tpu/ops/pallas_composite.py:317",
             "launches": launches["K1b"], "max_abs_err": err,
             "ms": t["K1b"][0], "plain_ms": t["K1b plain"][0],
-            "bound_ms": k1b_bound, "bound_by": k1b_by, "library_ms": None}
+            "bound_ms": k1b_bound, "bound_by": k1b_by,
+            "library_ms": None}, k3_entry
+
+
+def k3_check(torch, model, params, fr, S: int, Kf: int, card: str,
+             peaks) -> dict:
+    """K3, the INR's MLP, on the first block of planes of ``fr``'s field
+    (the arguments ``predict_field`` hands ``mlp_block``), against its
+    plain version on the same inputs: labels equal wherever the plain
+    top-two logit gap exceeds K3_GAP of the logits' largest magnitude, at
+    most 1e-3 of the points off; then both device times (cold L2) beside
+    K3's bound: 2 (M H1 + sum of the later layers' in x out) FLOPs a point
+    on the bf16 tensor cores, the intensities read and the labels written
+    once. Returns the kernels line's K3 entry."""
+    from mri_raytracer_tpu_torch.ops import neural_march as nm
+
+    blocks = []
+
+    def grab(fn):
+        def call(*a, **kw):
+            blocks.append(a[1:7])
+            return fn(*a, **kw)
+        return call
+
+    with torch.no_grad(), patched(nm, "mlp_block", grab):
+        nm.frame_field(model, params, fr, S, Kf)
+    prm, intens, a_n, b_n, k_n, inv_order = blocks[0]
+    K = model.cfg.fourier_freqs
+    args = (prm, K, intens, a_n, b_n, k_n, inv_order)
+    B, Oa, Ob, M = intens.shape
+    with torch.no_grad():
+        got = nm.separable_mlp(*args)
+        logits = nm.separable_logits_plain(*args)
+    torch.cuda.synchronize()
+    want = logits.argmax(-1)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    scale = float(logits.abs().max())
+    off = got.long() != want
+    share = float(off.float().mean())
+    worst = float(gap[off].max()) / scale if bool(off.any()) else 0.0
+    log("neural", f"K3 block B={B} Oa={Oa} Ob={Ob} M={M}, hidden "
+        f"{[layer.W.shape[1] for layer in prm][:-1]}: labels off plain "
+        f"{int(off.sum())} of {off.numel()} ({share:.3e}; limit 1e-3), "
+        f"the largest top-two gap of a point off {worst:.3e} of the logits' "
+        f"scale {scale:.3f} (limit {K3_GAP:.3e})")
+    if worst > K3_GAP or not share <= 1e-3:
+        raise RuntimeError("K3 disagrees with its plain version")
+
+    def kernel():
+        with torch.no_grad():
+            return nm.separable_mlp(*args)
+
+    def plain():
+        with torch.no_grad():
+            return nm.separable_logits_plain(*args).argmax(-1)
+
+    ms = device_ms(torch, kernel, 20)
+    plain_ms = device_ms(torch, plain, 3)
+    widths = [prm[0].W.shape[1]] + [layer.W.shape[1] for layer in prm[1:]]
+    P = B * Oa * Ob
+    flops = 2.0 * P * (M * widths[0] + sum(
+        a * b for a, b in zip(widths[:-1], widths[1:])))
+    nbytes = P * (4 * M + 4) + sum(t.numel() * 4 for layer in prm
+                                   for t in (layer.W, layer.b))
+    k3_bound, k3_by = bound(peaks, nbytes, flops, peaks.bf16)
+    log("neural", f"K3 device {ms:.4f} ms (cold L2), bound {k3_bound:.4f} ms "
+        f"by {k3_by} ({flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.1f} MB), "
+        f"{100 * k3_bound / ms:.1f}% of it; plain version {plain_ms:.4f} ms "
+        f"({plain_ms / ms:.1f}x), on {card}")
+    return {"name": "K3 INR MLP", "route": "cuda",
+            "source": "mri_raytracer_tpu_torch/csrc/inr_mlp.cu",
+            "replaces": None, "launches": 0, "max_abs_err": share,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": None}
 
 
 def accounting_phase(torch, renderer, p, radius: float, k1, flags, plain,

@@ -20,10 +20,17 @@ take bf16 operands with float32 accumulation (``shearwarp._bf16_dot``'s
 form: operands rounded to bf16, product in float32), and hidden states are
 rounded to bf16. Near-tie logits can flip their argmax between two
 implementations, so labels are compared by their mismatch fraction.
+
+The separable MLP (``separable_mlp``) is kernel K3 on a card,
+``csrc/inr_mlp.cu``: first layer, hidden layers, head and argmax in one
+launch a block of planes, the hidden states in registers, the products on
+the bf16 tensor cores. ``separable_logits_plain`` is its plain version,
+which runs for CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -32,7 +39,8 @@ import torch
 
 from mri_raytracer_tpu_torch.env import resolve_device
 from mri_raytracer_tpu_torch.models.api import ModelBundle
-from mri_raytracer_tpu_torch.ops import composite, shearwarp as sw
+from mri_raytracer_tpu_torch.ops import composite, kernels, warp
+from mri_raytracer_tpu_torch.ops import shearwarp as sw
 from mri_raytracer_tpu_torch.render import brats as brats_render
 from mri_raytracer_tpu_torch.render.brats import BratsRenderer
 from mri_raytracer_tpu_torch.render.camera import CameraBasis
@@ -134,6 +142,159 @@ def _mlp_tail(layers, h: torch.Tensor) -> torch.Tensor:
     return torch.addmm(last.b, _bf16(h), _bf16(last.W))
 
 
+def separable_logits_plain(params, K: int, intens: torch.Tensor,
+                           a_n: torch.Tensor, b_n: torch.Tensor,
+                           k_n: torch.Tensor, inv_order) -> torch.Tensor:
+    """Plain PyTorch version of K3 up to its argmax: (B, Oa, Ob, C) float32
+    logits of the separable MLP over intensities ``intens`` (B, Oa, Ob, M)
+    and normalized coordinates ``a_n`` (B, Oa), ``b_n`` (B, Ob), ``k_n``
+    (B,) (``inv_order``: for each of x, y, z its position among k, a,
+    b)."""
+    B, Oa = a_n.shape
+    Ob = b_n.shape[1]
+    row, col, const, W1_int = _separable_first_layer_batched(
+        params, K, intens.shape[-1], a_n, b_n, k_n, inv_order)
+    h = _first_hidden(row, col, const, intens, W1_int)
+    return _mlp_tail(params, h.reshape(-1, h.shape[-1])).reshape(
+        B, Oa, Ob, -1)
+
+
+# K3's limits (csrc/inr_mlp.cu): hidden widths, classes, intensities and
+# dense layers it takes.
+MLP_MAX_WIDTH, MLP_MAX_CLASSES, MLP_MAX_M, MLP_MAX_LAYERS = 256, 8, 4, 16
+_MLP_ARGTYPES = ((ctypes.c_void_p,) + (ctypes.c_longlong,) * 4
+                 + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
+                 + (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_void_p))
+
+
+def _kernel_widths(weights, K: int, M: int) -> Tuple[int, ...]:
+    """The widths K3 is launched with (the first layer's fan-in, then each
+    layer's fan-out) after checking that it takes the MLP whose weights are
+    ``weights`` (W0, b0, W1, b1, ...): float32 contiguous, hidden widths
+    multiples of 16 up to ``MLP_MAX_WIDTH``, at most ``MLP_MAX_CLASSES``
+    classes, ``MLP_MAX_M`` intensities and ``MLP_MAX_LAYERS`` layers.
+    Raises ValueError (TypeError for a dtype) on anything else."""
+    n_layers = len(weights) // 2
+    if not 2 <= n_layers <= MLP_MAX_LAYERS:
+        raise ValueError(f"K3 takes 2 to {MLP_MAX_LAYERS} dense layers, "
+                         f"got {n_layers}")
+    if not 1 <= M <= MLP_MAX_M:
+        raise ValueError(f"K3 takes 1 to {MLP_MAX_M} intensities, got {M}")
+    widths = [int(weights[0].shape[0])]
+    for n in range(n_layers):
+        W, b = weights[2 * n], weights[2 * n + 1]
+        if W.dtype != _F32 or b.dtype != _F32:
+            raise TypeError(f"layer {n}: K3 takes float32 weights, got "
+                            f"{W.dtype} / {b.dtype}")
+        if W.dim() != 2 or W.shape[0] != widths[-1] \
+                or tuple(b.shape) != (W.shape[1],):
+            raise ValueError(f"layer {n}: W {tuple(W.shape)} and b "
+                             f"{tuple(b.shape)} do not chain from width "
+                             f"{widths[-1]}")
+        if not (W.is_contiguous() and b.is_contiguous()):
+            raise ValueError(f"layer {n}: K3 takes contiguous weights")
+        widths.append(int(W.shape[1]))
+    if widths[0] != 3 + 6 * K + M:
+        raise ValueError(f"first layer has {widths[0]} inputs, not 3 + 6 * "
+                         f"{K} + {M}")
+    for w in widths[1:-1]:
+        if w % 16 or not 16 <= w <= MLP_MAX_WIDTH:
+            raise ValueError(f"K3 takes hidden widths that are multiples of "
+                             f"16 up to {MLP_MAX_WIDTH}, got {widths[1:-1]}")
+    if not 1 <= widths[-1] <= MLP_MAX_CLASSES:
+        raise ValueError(f"K3 takes 1 to {MLP_MAX_CLASSES} classes, got "
+                         f"{widths[-1]}")
+    return tuple(widths)
+
+
+def separable_mlp(params, K: int, intens: torch.Tensor, a_n: torch.Tensor,
+                  b_n: torch.Tensor, k_n: torch.Tensor, inv_order,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Oa, Ob) int32 labels of the separable MLP (``params``, ``K``
+    harmonics) over ``intens`` (B, Oa, Ob, M) float32, any strides, and the
+    normalized coordinates ``a_n`` (B, Oa), ``b_n`` (B, Ob), ``k_n`` (B,)
+    (``inv_order``: for each of x, y, z its position among k, a, b);
+    written into ``out`` when given. Launches K3 for CUDA tensors (adding
+    the points to the counter ``field.kernel_points``), runs the plain
+    version for CPU tensors. K3 has no backward: on the card it refuses
+    weights that require grad while grad is enabled."""
+    if intens.dim() != 4 or a_n.dim() != 2 or b_n.dim() != 2 \
+            or k_n.dim() != 1:
+        raise ValueError("intens must be (B, Oa, Ob, M), a_n (B, Oa), b_n "
+                         f"(B, Ob), k_n (B,), got {tuple(intens.shape)}, "
+                         f"{tuple(a_n.shape)}, {tuple(b_n.shape)}, "
+                         f"{tuple(k_n.shape)}")
+    B, Oa, Ob, M = intens.shape
+    if tuple(a_n.shape) != (B, Oa) or tuple(b_n.shape) != (B, Ob) \
+            or tuple(k_n.shape) != (B,):
+        raise ValueError(f"coordinates {tuple(a_n.shape)}, "
+                         f"{tuple(b_n.shape)}, {tuple(k_n.shape)} do not "
+                         f"fit intens {tuple(intens.shape)}")
+    if sorted(inv_order) != [0, 1, 2]:
+        raise ValueError(f"inv_order must order (0, 1, 2), got {inv_order}")
+    dev = intens.device
+    weights = [t for layer in params for t in (layer.W, layer.b)]
+    tensors = [("a_n", a_n), ("b_n", b_n), ("k_n", k_n)]
+    for name, t in tensors + [("weights", w) for w in weights]:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, intens on {dev}")
+    for name, t in [("intens", intens)] + tensors:
+        if t.dtype != _F32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if out is not None:
+        if out.device != dev or out.dtype != torch.int32 \
+                or tuple(out.shape) != (B, Oa, Ob):
+            raise ValueError(f"out must be ({B}, {Oa}, {Ob}) int32 on {dev}, "
+                             f"got {tuple(out.shape)} {out.dtype} on "
+                             f"{out.device}")
+    if dev.type == "cpu":
+        labels = torch.argmax(separable_logits_plain(
+            params, K, intens, a_n, b_n, k_n, inv_order), dim=-1)
+        if out is None:
+            return labels.to(torch.int32)
+        return out.copy_(labels)
+    widths = _kernel_widths(weights, K, M)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no MLP kernel for device {dev}")
+    kernels.refuse_grad("separable_mlp (kernel K3)", *weights)
+    if not all(t.is_contiguous() for _, t in tensors):
+        raise ValueError("a_n, b_n and k_n must be contiguous")
+    if out is None:
+        out = torch.empty((B, Oa, Ob), dtype=torch.int32, device=dev)
+    elif not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if out.numel() == 0:
+        return out
+    index = dev.index
+    if index == torch.cuda.current_device():
+        _launch_mlp(intens, a_n, b_n, k_n, out, K, inv_order, weights,
+                    widths, index)
+    else:
+        with torch.cuda.device(index):
+            _launch_mlp(intens, a_n, b_n, k_n, out, K, inv_order, weights,
+                        widths, index)
+    separable_mlp.launches += 1
+    profiling.count("field.kernel_points", out.numel())
+    return out
+
+
+def _launch_mlp(intens, a_n, b_n, k_n, out, K, inv_order, weights, widths,
+                index):
+    fn = kernels.function("inr_mlp", "mrt_inr_mlp", _MLP_ARGTYPES)
+    B, Oa, Ob, M = intens.shape
+    ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
+    ws = (ctypes.c_int * len(widths))(*widths)
+    err = fn(intens.data_ptr(), *intens.stride(), a_n.data_ptr(),
+             b_n.data_ptr(), k_n.data_ptr(), out.data_ptr(), B, Oa, Ob, M, K,
+             inv_order.index(0), inv_order.index(1), inv_order.index(2),
+             ptrs, ws, len(widths) - 1, warp.current_stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"INR MLP kernel launch failed: cudaError {err}")
+
+
+separable_mlp.launches = 0
+
+
 def model_is_separable(model: ModelBundle) -> bool:
     """True when the first layer decomposes per axis (plain MLP over
     [coords | deterministic Fourier features | modalities])."""
@@ -155,27 +316,25 @@ def bake_labels(model: ModelBundle, params, modsz: torch.Tensor,
 
     At voxel positions the intensity features are the voxels (no resample)
     and the coordinate features are separable per axis, so the bake is
-    the separable first layer + the bf16 tail over blocks of X slices.
-    Non-separable models take the generic float32 path."""
+    ``separable_mlp`` (K3 on a card) over blocks of X slices: rows Y,
+    columns Z, planes X. Non-separable models take the generic float32
+    path."""
     if not model_is_separable(model):
         from mri_raytracer_tpu_torch.eval.inference import _predict_labels
 
         return _predict_labels(model, params, modsz).to(torch.int32)
-    M, X, Y, Z = modsz.shape
+    _, X, Y, Z = modsz.shape
     K = model.cfg.fourier_freqs
     ys, zs, xs = (_norm_index(n, modsz.device) for n in (Y, Z, X))
-    out = []
+    ys = ys.expand(block, Y).contiguous()
+    zs = zs.expand(block, Z).contiguous()
+    out = torch.empty((X, Y, Z), dtype=torch.int32, device=modsz.device)
     for x0 in range(0, X, block):
         x1 = min(x0 + block, X)
         B = x1 - x0
-        row, col, const, W1_int = _separable_first_layer_batched(
-            params, K, M, ys.expand(B, Y), zs.expand(B, Z), xs[x0:x1],
-            (0, 1, 2))
-        intens = modsz[:, x0:x1].permute(1, 2, 3, 0)  # (B, Y, Z, M)
-        h = _first_hidden(row, col, const, intens, W1_int)
-        logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
-        out.append(torch.argmax(logits, dim=-1).reshape(B, Y, Z))
-    return torch.cat(out).to(torch.int32)
+        separable_mlp(params, K, modsz[:, x0:x1].permute(1, 2, 3, 0),
+                      ys[:B], zs[:B], xs[x0:x1], (0, 1, 2), out[x0:x1])
+    return out
 
 
 def resample_block(modsz_s: torch.Tensor, zi: torch.Tensor, oa, sa, ob, sb,
@@ -197,29 +356,30 @@ def resample_block(modsz_s: torch.Tensor, zi: torch.Tensor, oa, sa, ob, sb,
 
 def mlp_block(model: ModelBundle, params, intens: torch.Tensor,
               a_n: torch.Tensor, b_n: torch.Tensor, k_n: torch.Tensor,
-              inv_order) -> torch.Tensor:
-    """(B, Op, Op) INR labels of B sweep planes' strided samples: the
-    argmax of the MLP over their intensities ``intens`` (B, Op, Op, M) and
-    normalized global coordinates, ``a_n`` (B, Op) along the rows, ``b_n``
-    (B, Op) along the columns and ``k_n`` (B,) along the sweep
-    (``inv_order``: for each of x, y, z its position among k, a, b)."""
+              inv_order, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Oa, Ob) int32 INR labels of B sweep planes' strided samples: the
+    argmax of the MLP over their intensities ``intens`` (B, Oa, Ob, M) and
+    normalized global coordinates, ``a_n`` (B, Oa) along the rows, ``b_n``
+    (B, Ob) along the columns and ``k_n`` (B,) along the sweep
+    (``inv_order``: for each of x, y, z its position among k, a, b);
+    written into ``out`` when given. A separable model runs
+    ``separable_mlp`` (K3 on a card); the others, whose first layer does
+    not split by axis, ``model.apply`` on every sample."""
     with profiling.span("predict_field.mlp"):
-        B, Op = a_n.shape
-        M = intens.shape[-1]
         if model_is_separable(model):
-            row, col, const, W1_int = _separable_first_layer_batched(
-                params, model.cfg.fourier_freqs, M, a_n, b_n, k_n,
-                inv_order)
-            h = _first_hidden(row, col, const, intens, W1_int)
-            logits = _mlp_tail(params, h.reshape(-1, h.shape[-1]))
-        else:
-            per_axis = (k_n[:, None, None].expand(B, Op, Op),
-                        a_n[:, :, None].expand(B, Op, Op),
-                        b_n[:, None, :].expand(B, Op, Op))
-            coords = torch.stack([per_axis[o] for o in inv_order], dim=-1)
-            logits = model.apply(params, coords.reshape(-1, 3),
-                                 intens.reshape(-1, M))
-        return torch.argmax(logits, dim=-1).reshape(-1, Op, Op)
+            return separable_mlp(params, model.cfg.fourier_freqs, intens,
+                                 a_n, b_n, k_n, inv_order, out)
+        B, Oa, Ob, M = intens.shape
+        per_axis = (k_n[:, None, None].expand(B, Oa, Ob),
+                    a_n[:, :, None].expand(B, Oa, Ob),
+                    b_n[:, None, :].expand(B, Oa, Ob))
+        coords = torch.stack([per_axis[o] for o in inv_order], dim=-1)
+        logits = model.apply(params, coords.reshape(-1, 3),
+                             intens.reshape(-1, M))
+        labels = torch.argmax(logits, dim=-1).reshape(B, Oa, Ob)
+        if out is None:
+            return labels.to(torch.int32)
+        return out.copy_(labels)
 
 
 @torch.no_grad()
@@ -235,8 +395,8 @@ def predict_field(model: ModelBundle, params, modsz_s: torch.Tensor,
     applied): the field K1b composites (plane m reads row m // kstride).
     Per block of planes, the z-scored modalities are resampled by the
     separable hat products at the strided grid (``resample_block``) and
-    the MLP runs as one (B*Op*Op, H) batch (``mlp_block``); each block
-    adds its B*Op*Op samples to the counter ``field.points``.
+    the MLP labels the block's B*Op*Op samples into its rows of the field
+    (``mlp_block``); each block adds them to the counter ``field.points``.
 
     ``modsz_s``: (M, K, Na, Nb) permuted (and possibly content-cropped)
     z-scored modalities; the crop contract matches
@@ -276,23 +436,26 @@ def predict_field(model: ModelBundle, params, modsz_s: torch.Tensor,
         def norm(t, d):
             return (t / (d - 1.0)) * 2.0 - 1.0
 
+        # The normalized coordinates of every plane's samples, once a frame:
+        # the same elementwise operations as per block, launched once.
         iis = torch.arange(Op, dtype=_F32, device=dev) * stride
-        fields = []
+        a_n = norm(off_a[:, None] + iis[None, :] * sc_a[:, None]
+                   + geom.a_off, dims_g[1])
+        b_n = norm(off_b[:, None] + iis[None, :] * sc_b[:, None]
+                   + geom.b_off, dims_g[2])
+        k_n = norm(z_glob, dims_g[0])
+        field = torch.empty((n_planes, Op, Op), dtype=torch.int32,
+                            device=dev)
         for m0 in range(0, n_planes, block):
             m1 = min(m0 + block, n_planes)
-            oa, sa = off_a[m0:m1], sc_a[m0:m1]
-            ob, sb = off_b[m0:m1], sc_b[m0:m1]
-            intens = resample_block(modsz_s, zi[m0:m1], oa, sa, ob, sb,
+            intens = resample_block(modsz_s, zi[m0:m1], off_a[m0:m1],
+                                    sc_a[m0:m1], off_b[m0:m1], sc_b[m0:m1],
                                     stride, Op, (acl, ach, aml, amh),
                                     (bcl, bch, bml, bmh))
-            pos_a_g = oa[:, None] + iis[None, :] * sa[:, None] + geom.a_off
-            pos_b_g = ob[:, None] + iis[None, :] * sb[:, None] + geom.b_off
-            fields.append(mlp_block(
-                model, params, intens, norm(pos_a_g, dims_g[1]),
-                norm(pos_b_g, dims_g[2]), norm(z_glob[m0:m1], dims_g[0]),
-                inv_order))
+            mlp_block(model, params, intens, a_n[m0:m1], b_n[m0:m1],
+                      k_n[m0:m1], inv_order, out=field[m0:m1])
             profiling.count("field.points", (m1 - m0) * Op * Op)
-        return torch.cat(fields).to(torch.int32)
+        return field
 
 
 class NeuralFrame(NamedTuple):

@@ -27,6 +27,7 @@ from mri_raytracer_tpu_torch.ops import shearwarp as sw
 from mri_raytracer_tpu_torch.render import params as rp
 from mri_raytracer_tpu_torch.render.brats import BratsRenderer
 from mri_raytracer_tpu_torch.render.camera import OrbitalCamera
+from mri_raytracer_tpu_torch.utils import profiling
 
 SHAPE = (40, 36, 32)
 O = 128
@@ -303,6 +304,93 @@ def test_neural_fused_frame_matches_scan_and_counts():
     assert float((fused - scan).abs().max()) <= 3e-3
 
 
+def _mlp_case(dims, B, Oa, Ob, dev, seed=0):
+    """An INR (6 harmonics, 4 intensities, 4 classes, the last bias nudged
+    so several classes win) and one block of inputs: intensities in the
+    resample's (M, B, Oa, Ob) buffer seen as (B, Oa, Ob, M), coordinates in
+    [-1, 1]."""
+    model = build_model(ModelConfig(hidden_dims=dims, fourier_freqs=6),
+                        num_modalities=4)
+    params = model.init(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        params[-1].b += torch.tensor([0.0, 0.4, 0.5, 0.45])
+    g = torch.Generator().manual_seed(seed + 1)
+    intens = torch.randn((4, B, Oa, Ob), generator=g).to(dev)
+    coords = [(torch.rand(shape, generator=g) * 2 - 1).to(dev)
+              for shape in ((B, Oa), (B, Ob), (B,))]
+    return model, params.to(dev), intens.permute(1, 2, 3, 0), coords
+
+
+# K3 against its plain version. The two sum in other orders (the tensor
+# cores against the SIMT GEMM), so where a float32 sum lies at a bf16
+# rounding boundary they round a hidden state to neighbouring bf16 values,
+# one step (2^-8 to 2^-7 of it) apart; the logits move by that step times
+# the weights downstream, and several states may differ along the tail
+# (measured on the card: labels off at gaps of up to 6.1e-3 of the logits'
+# scale). Labels must agree where the plain top-two logit gap exceeds 2^-5
+# of the logits' largest magnitude, and overall but at most 1e-3 of the
+# points; a wrong kernel parts at gaps of the logits' own size.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,B,Oa,Ob,inv_order", [
+    ((16,) * 4, 16, 256, 256, (0, 1, 2)),
+    ((64,) * 4, 16, 256, 256, (1, 2, 0)),
+    ((256,) * 4, 16, 256, 256, (1, 0, 2)),
+    ((128,) * 4, 5, 40, 24, (0, 1, 2)),
+    ((64, 32, 48), 3, 33, 70, (1, 2, 0)),
+])
+def test_k3_kernel_matches_plain(dims, B, Oa, Ob, inv_order):
+    dev = _card()
+    model, params, intens, (a_n, b_n, k_n) = _mlp_case(dims, B, Oa, Ob, dev)
+    K = model.cfg.fourier_freqs
+    n0 = neural_march.separable_mlp.launches
+    with torch.no_grad():
+        logits = neural_march.separable_logits_plain(params, K, intens, a_n,
+                                                     b_n, k_n, inv_order)
+        got = neural_march.separable_mlp(params, K, intens, a_n, b_n, k_n,
+                                         inv_order)
+    torch.cuda.synchronize()
+    assert neural_march.separable_mlp.launches == n0 + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, Oa, Ob)
+    want = logits.argmax(-1)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    scale = float(logits.abs().max())
+    off = got.long() != want
+    worst = float(gap[off].max()) / scale if bool(off.any()) else 0.0
+    assert worst <= 2 ** -5, f"a label off at a top-two gap {worst:.3e} x " \
+        f"{scale:.3f}; {int(off.sum())} off"
+    assert float(off.float().mean()) <= 1e-3
+    assert len(torch.unique(want)) > 1
+
+
+@pytest.mark.cuda
+def test_k3_labels_every_field_point():
+    """predict_field on the card labels every point through K3, one launch
+    a block of planes: ``field.kernel_points`` equals ``field.points``."""
+    dev = _card()
+    mods, seg = synthetic_case(SHAPE, seed=3)
+    disp = np.stack([percentile_normalize(m) for m in mods])
+    zsc = np.stack([zscore_nonzero(m.copy()) for m in mods])
+    model, params, *_ = _mlp_case((64,) * 4, 1, 1, 1, "cpu")
+    p = rp.default_render_params(SHAPE, show_seg=True, show_pred=True)
+    basis = OrbitalCamera(radius=rp.default_camera_radius(p, SHAPE),
+                          theta=0.85, phi=0.85).basis()
+    r = neural_march.NeuralBratsRenderer(disp, zsc, seg, model, params,
+                                         width=96, height=96, sweep_res=128,
+                                         pred_stride=2)
+    fr = r.sweep_frame(basis, p)
+    profiling.reset_counters()
+    n0 = neural_march.separable_mlp.launches
+    field = neural_march.frame_field(model, r.params, fr, 2, block=8)
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    assert c["field.kernel_points"] == c["field.points"] == field.numel()
+    assert neural_march.separable_mlp.launches - n0 == -(-field.shape[0]
+                                                         // 8)
+    assert field.dtype == torch.int32 and int(field.min()) >= 0 \
+        and int(field.max()) < 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("theta,phi,width,height,o_res,radius,fov,c_offset", [
     (0.0, 1.5, 96, 80, O, 1.0, 55.0, 0),
@@ -415,6 +503,24 @@ def test_wrappers_refuse_bad_cuda_input():
         warp.warp_screen(C.transpose(0, 1), s, 0, 4, 4)
     with pytest.raises(ValueError):
         warp.warp_screen(C, s.cpu(), 0, 4, 4)
+    model, params, intens, (a_n, b_n, k_n) = _mlp_case((64,) * 2, 2, 8, 8,
+                                                       dev)
+    K = model.cfg.fourier_freqs
+    with torch.no_grad():
+        with pytest.raises(ValueError):  # a column of a (B, Oa, 2) buffer
+            neural_march.separable_mlp(params, K, intens, a_n,
+                                       torch.zeros((2, 16), device=dev)[:, ::2],
+                                       k_n, (0, 1, 2))
+        with pytest.raises(ValueError):
+            neural_march.separable_mlp(params, K, intens, a_n, b_n,
+                                       k_n.cpu(), (0, 1, 2))
+        _, wide, *_ = _mlp_case((272,), 1, 1, 1, dev)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            neural_march.separable_mlp(wide, K, intens, a_n, b_n, k_n,
+                                       (0, 1, 2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        neural_march.separable_mlp(params, K, intens, a_n, b_n, k_n,
+                                   (0, 1, 2))
 
 
 @pytest.mark.cuda

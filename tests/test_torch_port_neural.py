@@ -6,9 +6,10 @@ Both sides get the same numpy scene, the same INR weights (converted by
 stage, the same geometry and field. Tolerances, each the JAX package's own
 bar for the same comparison:
   * the separable first layer: atol/rtol 2e-4 (tests/test_neural_march.py:111);
-  * predicted labels (``predict_field``, ``bake_labels``): mismatch
-    fraction < 5e-3 (tests/test_neural_march.py:248) — bf16 hidden states
-    flip near-tie argmaxes;
+  * predicted labels (``predict_field``, ``bake_labels``, K3's plain
+    version through ``mlp_block``): mismatch fraction < 5e-3
+    (tests/test_neural_march.py:248) — bf16 hidden states flip near-tie
+    argmaxes;
   * K1b's plain version vs the Pallas kernel in interpret mode: atol 3e-3
     (PR 1's K1 bar: Pallas rounds its a-axis hat weights to bf16);
   * the scan frame vs JAX's with geom and field injected: atol 3e-3.
@@ -40,6 +41,7 @@ from mri_raytracer_tpu_torch.ops import composite, neural_march as tnm
 from mri_raytracer_tpu_torch.ops import shearwarp as tsw
 from mri_raytracer_tpu_torch.render import params as trp
 from mri_raytracer_tpu_torch.render.camera import OrbitalCamera as TCam
+from mri_raytracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 SHAPE = (24, 24, 20)
@@ -188,6 +190,116 @@ def test_bake_labels_and_generic_path_match_jax(scene, inr):
     ref_s = np.asarray(j_predict(sj_m, sj_p, jnp.asarray(zsc)))
     assert np.mean(tnm.bake_labels(st_m, st_p, torch.from_numpy(zsc))
                    .numpy() != ref_s) < 5e-3
+
+
+def _jax_block_labels(jp, K, intens, a_n, b_n, k_n, inv_order):
+    """The JAX package's labels of one block of planes: predict_field's
+    block_fn after its resample (neural_march.py:266-276)."""
+    M = intens.shape[-1]
+    row, col, const, W1_int = jnm._separable_first_layer_batched(
+        jp, K, M, jnp.asarray(a_n), jnp.asarray(b_n), jnp.asarray(k_n),
+        inv_order)
+    h = jax.nn.relu(row[:, :, None, :] + col[:, None, :, :]
+                    + const[:, None, None, :]
+                    + jnp.dot(jnp.asarray(intens).astype(jnp.bfloat16),
+                              W1_int.astype(jnp.bfloat16),
+                              preferred_element_type=jnp.float32)
+                    ).astype(jnp.bfloat16)
+    logits = jnm._mlp_tail(jp, h.reshape(-1, h.shape[-1]))
+    return np.asarray(jnp.argmax(logits, -1)).reshape(intens.shape[:3])
+
+
+# K3's plain version (what the wrapper runs for CPU tensors) against the
+# JAX package at the widths of the reference's [16]x4 .. [256]x4: one block
+# of 5 planes (not a multiple of the 16-plane block nor of K3's tiles) with
+# rows and columns of different counts, and the voxel bake over 21 slices.
+@pytest.mark.parametrize("width", [16, 64, 128, 256])
+def test_mlp_block_plain_matches_jax(width):
+    K, B, Oa, Ob = 6, 5, 20, 12
+    jm, jp, tm, tp = _models(JCfg(hidden_dims=(width,) * 4, fourier_freqs=K),
+                             seed=width)
+    rng = np.random.default_rng(width)
+    full = rng.normal(0, 1, (4, B, Oa, Ob)).astype(np.float32)
+    a_n, b_n, k_n = (rng.uniform(-1, 1, shape).astype(np.float32)
+                     for shape in ((B, Oa), (B, Ob), (B,)))
+    inv_order = (1, 2, 0)
+    want = _jax_block_labels(jp, K, np.moveaxis(full, 0, -1), a_n, b_n, k_n,
+                             inv_order)
+    got = tnm.mlp_block(tm, tp, torch.from_numpy(full).permute(1, 2, 3, 0),
+                        torch.from_numpy(a_n), torch.from_numpy(b_n),
+                        torch.from_numpy(k_n), inv_order)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, Oa, Ob)
+    assert len(np.unique(want)) >= 2
+    assert np.mean(got.numpy() != want) < 5e-3
+    out = torch.full((B, Oa, Ob), -1, dtype=torch.int32)
+    assert tnm.mlp_block(tm, tp, torch.from_numpy(full).permute(1, 2, 3, 0),
+                         torch.from_numpy(a_n), torch.from_numpy(b_n),
+                         torch.from_numpy(k_n), inv_order, out=out) is out
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("width", [16, 64, 128, 256])
+def test_bake_labels_matches_jax_by_width(width):
+    jm, jp, tm, tp = _models(JCfg(hidden_dims=(width,) * 4, fourier_freqs=6),
+                             seed=width + 1)
+    modsz = np.random.default_rng(width).normal(
+        0, 1, (4, 21, 18, 14)).astype(np.float32)
+    baked_j = np.asarray(jnm.bake_labels(jm, jp, jnp.asarray(modsz)))
+    baked_t = tnm.bake_labels(tm, tp, torch.from_numpy(modsz))
+    assert baked_t.dtype == torch.int32 and baked_t.shape == modsz.shape[1:]
+    assert len(np.unique(baked_j)) >= 2
+    assert np.mean(baked_t.numpy() != baked_j) < 5e-3
+
+
+def test_separable_mlp_checks():
+    """The wrapper refuses what neither K3 nor its plain version takes on
+    every device, and what K3 does not take before it looks for a card:
+    meta tensors reach the kernel's checks without one."""
+    _, _, tm, tp = _models(JCfg(hidden_dims=(32, 32), fourier_freqs=2))
+    K, B, Oa, Ob = 2, 2, 3, 5
+    x = torch.zeros((B, Oa, Ob, 4))
+    a_n, b_n, k_n = torch.zeros(B, Oa), torch.zeros(B, Ob), torch.zeros(B)
+    order = (0, 1, 2)
+    with pytest.raises(TypeError):
+        tnm.separable_mlp(tp, K, x.double(), a_n, b_n, k_n, order)
+    with pytest.raises(ValueError, match="on meta"):
+        tnm.separable_mlp(tp, K, x, a_n.to("meta"), b_n, k_n, order)
+    with pytest.raises(ValueError, match="on meta"):
+        tnm.separable_mlp(tp.to("meta"), K, x, a_n, b_n, k_n, order)
+    with pytest.raises(ValueError):
+        tnm.separable_mlp(tp, K, x, a_n, b_n[:, :4], k_n, order)
+    with pytest.raises(ValueError):
+        tnm.separable_mlp(tp, K, x, a_n, b_n, k_n, order,
+                          out=torch.zeros((B, Oa, Ob), dtype=torch.int64))
+    meta = [t.to("meta") for t in (x, a_n, b_n, k_n)]
+    for dims, classes, match in [((20, 32), 4, "multiples of 16"),
+                                 ((32, 272), 4, "multiples of 16"),
+                                 ((32, 32), 9, "classes"),
+                                 ((32, 32), 4, "no MLP kernel")]:
+        tm2 = tbuild(TCfg(hidden_dims=dims, fourier_freqs=K,
+                          num_classes=classes), num_modalities=4)
+        tp2 = tm2.init(torch.Generator().manual_seed(0)).to("meta")
+        err = RuntimeError if match == "no MLP kernel" else ValueError
+        with pytest.raises(err, match=match):
+            tnm.separable_mlp(tp2, K, *meta, order)
+    # The plain version takes widths K3 does not.
+    tm3 = tbuild(TCfg(hidden_dims=(20, 8), fourier_freqs=K), num_modalities=4)
+    tp3 = tm3.init(torch.Generator().manual_seed(0))
+    assert tnm.separable_mlp(tp3, K, x, a_n, b_n, k_n, order).shape == \
+        (B, Oa, Ob)
+
+
+def test_predict_field_counts_points_not_kernel_points_on_cpu(scene, inr):
+    _, _, tm, tp = inr
+    f = _frame(scene, 0.8, 1.1)
+    profiling.reset_counters()
+    launches = tnm.separable_mlp.launches
+    ft = tnm.predict_field(tm, tp, f["mzt"], f["gt"], f["pt"], f["axis"], O,
+                           S, block=8)
+    c = profiling.counters()
+    assert c["field.points"] == ft.numel()
+    assert c.get("field.kernel_points", 0) == 0
+    assert tnm.separable_mlp.launches == launches
 
 
 @pytest.mark.parametrize("kstride", [1, 2])
